@@ -1,0 +1,449 @@
+"""Drive the PyTorch/CUDA port on one GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases, each printed on its own line:
+ 1. build both CUDA kernels from gym_so100_tpu_torch/csrc with nvcc (sm_90a);
+ 2. print the card's name and power limit (nvidia-smi);
+ 3. check each kernel against its plain PyTorch version on the card, on the
+    inputs of real states of the 4096-env batch (float32, hull contacts on,
+    K = 16): at touchdown (the first control step after the third at which
+    at least half the envs have a contact) and after 12 control steps (the
+    cube landed, the arm reaching the cube and the table), and time both on
+    the latter;
+ 4. run BatchedEnv(num_envs=4096, device="cuda"): reset, then control steps
+    with seeded random actions and one autoreset; assert finite results and
+    that each kernel launched exactly 10 times per control step; time the
+    env-steps per second after a warm-up;
+ 5. print the kernel table as one JSON line, then the result line
+    {"ok": true, "device": {...}}.
+
+Any failed check raises, so the script exits non-zero and prints no result.
+Without a CUDA device, or outside a checkout of the repository, it exits
+with code 2 before doing anything.
+"""
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+NUM_ENVS = 4096
+MAX_CONTACTS = 16
+TASK = "so100_touch_cube"
+SEED = 0
+WARM_STEPS = 3        # control steps before the search for touchdown
+TOUCHDOWN_MAX = 10    # ... which may take this many more
+LANDED_STEPS = 12     # control steps before the second kernel checks
+FLOOR_SAMPLES = 8     # perturbed plain solves that set the second check's floor
+MAIN_STEPS = 6        # control steps of the counted main-path run
+TIMED_STEPS = 10      # control steps timed for env-steps/s
+H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
+H100_F32_OPS_PER_S = 67e12   # float32 outside the tensor cores
+EPS32 = 1.1920929e-07        # float32 machine epsilon
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def gpu_name_and_power():
+    try:
+        res = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        )
+        line = res.stdout.strip().splitlines()[0] if res.stdout.strip() else ""
+    except (OSError, subprocess.SubprocessError):
+        line = ""
+    return line
+
+
+def cuda_ms(fn, reps):
+    """Mean device time of fn() over `reps` calls, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check_hull(env, es, timed):
+    """Kernel 1 against sweep_h_plain on the geom poses of `es`: the same
+    float32 operations in the same order, so the results must be equal
+    (checked to 1e-6 abs/rel on depth and normal, active masks equal,
+    witness positions to 1e-5)."""
+    import torch
+
+    from gym_so100_tpu_torch import kernels
+    from gym_so100_tpu_torch.ops.collision import hull_lanes
+    from gym_so100_tpu_torch.ops.smooth_lanes import kinematics
+
+    m = env.m
+    d = kinematics(m, es.physics)
+    tb = hull_lanes.hull_tables(m)
+    gx = d.geom_xpos[:, tb.gidx, :]
+    gm = d.geom_xmat[:, tb.gidx, :, :]
+    p = [gx[..., k].T for k in range(3)]
+    R = [[gm[..., j, k].T for k in range(3)] for j in range(3)]
+    p_pack = torch.cat(p).contiguous()
+    R_pack = torch.cat([R[j][k] for j in range(3) for k in range(3)]).contiguous()
+    args = (p_pack, R_pack, tb.verts, tb.D, tb.counts, tb.i1, tb.i2)
+    out_k = hull_lanes.sweep_h(*args)
+    out_p = hull_lanes.sweep_h_plain(*args)
+    torch.cuda.synchronize()
+    P, B = tb.P, p_pack.shape[1]
+    split = lambda o: (o[:P], [o[(1 + j) * P:(2 + j) * P] for j in range(3)])
+    res_k = hull_lanes._witness_and_pack(m, tb, p, R, *split(out_k))
+    res_p = hull_lanes._witness_and_pack(m, tb, p, R, *split(out_p))
+    act = res_p[3]
+    err = (out_k - out_p).abs()
+    max_err = float(err.max())
+    assert torch.equal(res_k[3], act), "hull: active masks differ"
+    assert float((err / out_p.abs().clamp(min=1.0)).max()) <= 1e-6, (
+        f"hull: depth/normal differ by {max_err}")
+    pos_err = max(float((res_k[0][j][act] - res_p[0][j][act]).abs().max())
+                  if act.any() else 0.0 for j in range(3))
+    assert pos_err <= 1e-5, f"hull: witness positions differ by {pos_err}"
+    log(f"hull sweep check: active pairs {int(act.sum())}/{P * B}, depth/normal max "
+        f"abs err {max_err:.3g}, witness pos err {pos_err:.3g}")
+    if not timed:
+        return None
+
+    out = torch.empty_like(out_k)
+    G, ND = tb.G, tb.D.shape[0]
+    Vmax = tb.verts.shape[1] // 3
+    ms = cuda_ms(lambda: kernels.launch("gst_hull_sweep", *args, out, G, ND, P, Vmax, B), 50)
+    plain_ms = cuda_ms(lambda: hull_lanes.sweep_h_plain(*args), 5)
+    # least work: inputs read once, output written once; operations of the
+    # sweep (15 for the local direction, 5 per vertex support, 2 per vertex
+    # max/min, 5 for d.p, 2 adds) and the pair min (sub + compare per dir)
+    counts = tb.counts.tolist()
+    nbytes = 4 * (p_pack.numel() + R_pack.numel() + tb.verts.numel() + tb.D.numel()
+                  + out_k.numel()) + 4 * (tb.counts.numel() + 2 * P)
+    ops = B * ND * (sum(27 + 7 * (v - 1) for v in counts) + 2 * P)
+    log(f"hull sweep: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return dict(
+        name="hull_sweep", route="cuda",
+        source="gym_so100_tpu_torch/csrc/hull_sweep.cu",
+        replaces="gym_so100_tpu/ops/collision/hull_lanes.py:221",
+        max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+        **_bound(nbytes, ops), library_ms=None,
+    )
+
+
+def _solver_stats(q, f, n, ref):
+    """Per-lane differences from the reference solve, as the contract of
+    tests/test_solver_pallas.py reads them."""
+    import torch
+
+    qr, fr, nr = ref
+    err = (q - qr).abs().amax(1) / max(float(qr.pow(2).mean().sqrt()), 1.0)
+    ferr = (f - fr).abs().amax(1) / max(float(fr.pow(2).mean().sqrt()), 1.0)
+    return dict(q95=float(torch.quantile(err, 0.95)), qmax=float(err.max()),
+                f95=float(torch.quantile(ferr, 0.95)),
+                dniter=abs(float(n.float().mean() - nr.float().mean())),
+                ndiff=float((n != nr).float().mean()))
+
+
+def solver_problem(env, es):
+    """The solver's inputs at the state `es`: (qM, a0, efc, warmstart)."""
+    from gym_so100_tpu_torch.models.scene import Data
+    from gym_so100_tpu_torch.ops import constraint_lanes, smooth_lanes
+    from gym_so100_tpu_torch.ops.collision import narrowphase
+
+    m, s = env.m, es.physics
+    sl = smooth_lanes.forward_smooth_lanes(m, s)
+    d = Data(geom_xpos=sl["geom_xpos"], geom_xmat=sl["geom_xmat"],
+             subtree_com=sl["subtree_com0"][:, None], cdof=sl["cdof"])
+    cl = narrowphase.collide_batched_lanes(m, d)
+    efc = constraint_lanes.make_efc_from_lanes(m, d, s, cl)
+    return sl["qM_lanes"], sl["qacc_smooth"], efc, s.qacc_warmstart
+
+
+def check_solver(env, es, timed, floor_samples=0):
+    """Kernel 2 against solve_plain on the constraint rows of `es`.
+
+    Both run the same float32 algorithm with sums in different orders, and
+    the algorithm has knife edges at rounding level (the sign of the
+    directional derivative at a Newton step of exactly 1 in quadratic
+    zones, the improvement < tol stop), so lanes can part.  Without
+    `floor_samples`, the contract of the JAX package's Pallas-vs-scan test
+    is asserted as it stands: qacc p95 < 1e-4, max < 5e-2; qfrc p95 <
+    5e-3; mean niter within 0.5; < 25% of lanes with another niter.  With
+    `floor_samples` = n, for a state where the plain solve parts from
+    itself by more than that contract allows, the plain solve is first
+    moved by one ulp of noise on each input (J, aref, D, qM, a0; n
+    samples), and every one of those statistics is held to the larger of
+    the contract and twice the worst sample (two solves that each lie
+    within the floor of the plain one lie within twice it of each other)."""
+    import dataclasses
+
+    import torch
+
+    from gym_so100_tpu_torch import kernels
+    from gym_so100_tpu_torch.ops import solver_lanes
+
+    m = env.m
+    qM, a0, efc, warm = solver_problem(env, es)
+    qk, fk, nk = solver_lanes.solve_fused(m, qM, a0, efc, warm)
+    ref = solver_lanes.solve_plain(m, qM, a0, efc, warm)
+    torch.cuda.synchronize()
+    for name, t in (("qacc", qk), ("qfrc", fk), ("niter", nk)):
+        assert bool(torch.isfinite(t.float()).all()), f"solver: {name} not finite"
+    st = _solver_stats(qk, fk, nk, ref)
+    # cone zones of the active contacts at the plain solution
+    jar_ref = (efc.J * ref[0].T[:, None]).sum(0) - efc.aref
+    cone = solver_lanes._cost_terms(efc, jar_ref)[5]
+    act = efc.con_active
+    zones = (f"{int(act.sum())} active contacts in {int(act.any(0).sum())}/{act.shape[1]} "
+             f"envs, top zone {int((cone['top'] & act).sum())}, middle zone "
+             f"{int((cone['middle'] & act).sum())}")
+    fmt = lambda x: " ".join(f"{k} {v:.3g}" for k, v in x.items())
+    bounds = dict(q95=1e-4, qmax=5e-2, f95=5e-3, dniter=0.5, ndiff=0.25)
+    if floor_samples:
+        gen = torch.Generator(device=a0.device).manual_seed(SEED + 5)
+        ulp = lambda t: t * (1 + EPS32 * torch.randn(
+            t.shape, generator=gen, device=t.device, dtype=t.dtype))
+        samples = [_solver_stats(*solver_lanes.solve_plain(
+            m, ulp(qM), ulp(a0),
+            dataclasses.replace(efc, J=ulp(efc.J), aref=ulp(efc.aref), D=ulp(efc.D)),
+            warm), ref) for _ in range(floor_samples)]
+        floor = {k: max(x[k] for x in samples) for k in st}
+        bounds = {k: max(b, 2 * floor[k]) for k, b in bounds.items()}
+        log(f"solver check ({zones}): kernel vs plain: {fmt(st)}; plain vs "
+            f"one-ulp-perturbed plain (worst of {floor_samples}): {fmt(floor)}; "
+            f"bounds: {fmt(bounds)}")
+    else:
+        log(f"solver check ({zones}): kernel vs plain: {fmt(st)}")
+    for k, bound in bounds.items():
+        assert st[k] < bound, f"solver: {k} {st[k]:.3g} >= {bound:.3g}"
+    if not timed:
+        return None
+
+    inp = solver_lanes.pack_fused_inputs(m, qM, a0, efc, warm)
+    NE, B = efc.aref.shape
+    K = efc.con_mu.shape[0]
+    jar = torch.empty(NE, B, device=a0.device)
+    djar = torch.empty(NE, B, device=a0.device)
+    out = torch.empty(2 * m.nv + 1, B, device=a0.device)
+    ms = cuda_ms(lambda: kernels.launch(
+        "gst_newton_solve", inp["J"], inp["aref"], inp["D"], inp["aux"], inp["us"],
+        inp["qM"], inp["x0"], inp["warm"], jar, djar, out, NE, efc.neq, efc.nf,
+        efc.nl, K, B, *solver_lanes.budgets(m, torch.float32)), 20)
+    plain_ms = cuda_ms(lambda: solver_lanes.solve_plain(m, qM, a0, efc, warm), 3)
+    # least work: inputs read once, output written once; per executed
+    # Newton iteration (this run's niter) the jar, gradient and djar passes
+    # (2*nv ops per row each), the Hessian over the rows with nonzero D
+    # (nv(nv+1) per row), 13 line-search derivative evaluations (~12 ops per
+    # row) and the cost at the new point (2*nv + 6 per row), plus Cholesky
+    nv = m.nv
+    nbytes = 4 * (sum(t.numel() for t in inp.values()) + out.numel())
+    active_rows = (efc.D != 0).sum(0).float()
+    per_iter = (NE * (3 * 2 * nv + 13 * 12 + 2 * nv + 6) + active_rows * nv * (nv + 1)
+                + nv ** 3 / 3 + 2 * nv * nv)
+    ops = float((nk.float() * per_iter).sum())
+    log(f"solver: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return dict(
+        name="newton_solve", route="cuda",
+        source="gym_so100_tpu_torch/csrc/newton_solve.cu",
+        replaces="gym_so100_tpu/ops/solver_lanes.py:635",
+        max_abs_err=float((qk - ref[0]).abs().max()), ms=ms, plain_ms=plain_ms,
+        **_bound(nbytes, ops), library_ms=None,
+    )
+
+
+def advance(env, es, steps, gen):
+    """`steps` control steps with random actions drawn from `gen`."""
+    import torch
+
+    for _ in range(steps):
+        actions = torch.rand(env.num_envs, 6, generator=gen, device=env.device) * 2 - 1
+        es = env.step(es, actions)[0]
+    return es
+
+
+def _bound(nbytes, ops):
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def run_main_path(env, steps):
+    """reset + `steps` control steps through BatchedEnv with seeded random
+    actions; the first 64 envs start one step short of their episode limit,
+    so they auto-reset on the first step.  Returns the number of resets."""
+    import torch
+
+    gen = torch.Generator(device=env.device).manual_seed(SEED + 2)
+    es = env.reset(seed=SEED + 3)
+    t = es.t.clone()
+    t[:64] = env.max_episode_steps - 1
+    es = es.replace(t=t)
+    resets = 0
+    for i in range(steps):
+        actions = torch.rand(env.num_envs, 6, generator=gen, device=env.device) * 2 - 1
+        es, obs, reward, term, trunc, info = env.step(es, actions)
+        done = term | trunc
+        resets += int(done.sum())
+        assert obs.shape == (env.num_envs, 15) and obs.dtype == torch.float32
+        assert bool(torch.isfinite(obs).all()), f"step {i}: obs not finite"
+        assert bool(torch.isfinite(reward).all()), f"step {i}: reward not finite"
+        assert bool(torch.isfinite(info["final_obs"]).all())
+        assert bool(torch.isfinite(es.physics.qpos).all())
+    assert resets >= 64, f"expected the first 64 envs to auto-reset, saw {resets}"
+    return resets, es
+
+
+def stage_times(env, es):
+    """Host-clock time of each stage of one substep, with a device
+    synchronize after each (so a stage's time includes its device work)."""
+    import torch
+
+    from gym_so100_tpu_torch.models.scene import Data
+    from gym_so100_tpu_torch.ops import constraint_lanes, smooth_lanes, solver_lanes
+    from gym_so100_tpu_torch.ops.collision import narrowphase
+
+    m, s = env.m, es.physics
+    times = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    for _ in range(2):                      # the second pass is reported
+        sl = timed("smooth", lambda: smooth_lanes.forward_smooth_lanes(m, s))
+        d = Data(geom_xpos=sl["geom_xpos"], geom_xmat=sl["geom_xmat"],
+                 subtree_com=sl["subtree_com0"][:, None], cdof=sl["cdof"],
+                 qacc_smooth=sl["qacc_smooth"])
+        cl = timed("collide", lambda: narrowphase.collide_batched_lanes(m, d))
+        efc = timed("efc", lambda: constraint_lanes.make_efc_from_lanes(m, d, s, cl))
+        q = timed("solve", lambda: solver_lanes.solve_lanes(
+            m, sl["qM_lanes"], d.qacc_smooth, efc, s.qacc_warmstart))[0]
+        timed("integrate", lambda: smooth_lanes.integrate_lanes(m, s, q))
+    total = sum(times.values())
+    log("substep stages (host clock, ms): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in times.items()) + f"; total {total:.2f}")
+
+
+def main():
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    root = Path(__file__).resolve().parent
+    if not (root / "gym_so100_tpu_torch" / "csrc").is_dir():
+        print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(root))
+
+    from gym_so100_tpu_torch import kernels
+    from gym_so100_tpu_torch.ops import solver_lanes
+    from gym_so100_tpu_torch.ops.collision import hull_lanes
+    from gym_so100_tpu_torch.parallel.batch import BatchedEnv
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1. build
+    t0 = time.perf_counter()
+    kernels.library()
+    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc "
+        f"{kernels.build_info.get('seconds', 0.0):.1f} s) -> {kernels.build_info['path']}")
+    for line in kernels.build_info.get("log", "").splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
+
+    # 2. the card
+    smi = gpu_name_and_power()
+    name = torch.cuda.get_device_name(0)
+    card = smi or f"{name}, power limit not readable"
+    log(f"card: {card}")
+
+    # 3. kernel checks at the main path's shapes
+    t0 = time.perf_counter()
+    env = BatchedEnv(task=TASK, num_envs=NUM_ENVS, device="cuda", seed=SEED,
+                     max_contacts=MAX_CONTACTS)
+    log(f"model: nq {env.m.nq} nv {env.m.nv} ngeom {env.m.ngeom}, pairs "
+        f"{len(env.m.pairs.box_box)} box-box / {len(env.m.pairs.hull_box)} hull-box / "
+        f"{len(env.m.pairs.hull_hull)} hull-hull, K {env.m.max_contacts} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    # the cube touching down on the table, then landed with the arm about it
+    gen = torch.Generator(device=env.device).manual_seed(SEED + 1)
+    es = advance(env, env.reset(seed=SEED), WARM_STEPS, gen)
+    steps = WARM_STEPS
+    while solver_problem(env, es)[2].con_active.any(0).float().mean() < 0.5:
+        assert steps < WARM_STEPS + TOUCHDOWN_MAX, "no touchdown: too few envs have a contact"
+        es = advance(env, es, 1, gen)
+        steps += 1
+    log(f"touchdown after {steps} control steps")
+    check_hull(env, es, timed=False)
+    check_solver(env, es, timed=False)
+    es = advance(env, es, LANDED_STEPS - steps, gen)
+    rows = [check_hull(env, es, timed=True),
+            check_solver(env, es, timed=True, floor_samples=FLOOR_SAMPLES)]
+
+    # 4. the main path, counted
+    hull_lanes.sweep_h.launches = 0
+    solver_lanes.solve_fused.launches = 0
+    resets, es = run_main_path(env, MAIN_STEPS)
+    torch.cuda.synchronize()
+    launches = {"hull_sweep": hull_lanes.sweep_h.launches,
+                "newton_solve": solver_lanes.solve_fused.launches}
+    log(f"main path: {MAIN_STEPS} control steps x {NUM_ENVS} envs, {resets} "
+        f"auto-resets, launches {launches}")
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+        assert row["launches"] == 10 * MAIN_STEPS, (
+            f"{row['name']}: {row['launches']} launches, expected {10 * MAIN_STEPS}")
+
+    gen = torch.Generator(device=env.device).manual_seed(SEED + 4)
+    actions = [torch.rand(NUM_ENVS, 6, generator=gen, device=env.device) * 2 - 1
+               for _ in range(TIMED_STEPS)]
+    es = env.step(es, actions[0])[0]       # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a in actions:
+        es = env.step(es, a)[0]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    log(f"throughput: {NUM_ENVS * TIMED_STEPS / dt:.1f} env-steps/s "
+        f"({dt / TIMED_STEPS * 1e3:.1f} ms per control step, {NUM_ENVS} envs, "
+        f"f32, hulls on, K={MAX_CONTACTS}) on {card}")
+    stage_times(env, es)
+    for row in rows:
+        log(f"kernel {row['name']}: {row['ms']:.4f} ms per launch, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
+            f"{row['launches']} launches, on {card}")
+
+    # 5. results
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}),
+          flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
+        flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

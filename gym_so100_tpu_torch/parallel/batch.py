@@ -1,0 +1,137 @@
+"""Batched lockstep env execution on one device.
+
+The port of `gym_so100_tpu/parallel/batch.py::BatchedEnv` (state
+observations; no sharding yet).  The env batch is one set of tensors with a
+leading env axis, stepped together.  Auto-reset follows Gymnasium's vector
+env convention: at an episode boundary the returned obs is the fresh
+episode's first observation and the terminal one goes to
+info["final_obs"]; episodes truncate at the registered limits.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..device import resolve_device
+from ..envs import constants as C
+from ..envs import core
+from ..models.scene import Model
+from ..ops import smooth_lanes
+
+EPISODE_LIMITS = {
+    "so100_touch_cube": 300,
+    "so100_touch_cube_sparse": 300,
+    "so100_cube_to_bin": 700,
+}
+
+
+class BatchedEnv:
+    """Batched env bound to (model, task), on `device` (default: the GPU,
+    raising when there is none; device="cpu" runs the plain PyTorch path).
+
+    Usage:
+        env = BatchedEnv(task="so100_cube_to_bin", num_envs=4096)
+        es = env.reset(seed=0)
+        es, obs, reward, terminated, truncated, info = env.step(es, actions)
+    """
+
+    def __init__(
+        self, m: Model | None = None, task: str = "so100_touch_cube",
+        num_envs: int = 4096, max_episode_steps=None, hull_contacts=True,
+        obs_mode="state", device="cuda", seed: int = 0, max_contacts: int = 16,
+    ):
+        """`m` defaults to the SO100 transfer-cube scene built with
+        `max_contacts` contact slots, in float32.  obs_mode "state" gives a
+        flat (15,) float32 vector per env (box, bin and ee positions, arm
+        qpos)."""
+        self.device = resolve_device(device)
+        if obs_mode == "pixels_agent_pos":
+            raise NotImplementedError(
+                "pixel observations need the rasterizer, which is not ported "
+                "yet (ROADMAP.md, queue A: pixels/rasterizer)"
+            )
+        if obs_mode != "state":
+            raise ValueError(f"unknown obs_mode {obs_mode!r}")
+        if m is None:
+            from ..models.builder import build_model
+
+            m, _ = build_model(max_contacts=max_contacts, device=self.device)
+        else:
+            m = m.to(self.device)
+        if not hull_contacts:
+            # reduced-contact mode: drop the arm-mesh collision pairs (the
+            # task pairs cube/table/pads/bin are all box pairs)
+            m = dataclasses.replace(
+                m, pairs=dataclasses.replace(m.pairs, hull_box=(), hull_hull=()))
+        self.m = m
+        self.task = task
+        self.num_envs = num_envs
+        self.max_episode_steps = max_episode_steps or EPISODE_LIMITS[task]
+        self.ids = core.TaskIds.from_model(m)
+        self.obs_mode = obs_mode
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+    def _spawn(self):
+        return C.sample_so100_box_poses(
+            self.num_envs, self.generator, self.m.dtype, self.device)
+
+    def _obs_vector(self, obs):
+        """Flat state observation (box, bin, ee, qpos)."""
+        return torch.cat(
+            [obs["box_position"], obs["bin_position"], obs["ee_position"],
+             obs["qpos"]], dim=-1,
+        ).to(torch.float32)
+
+    def reset(self, seed=None, box_pose=None) -> core.EnvState:
+        """Fresh episodes for every env.  Cube spawns come from `box_pose`
+        (num_envs, 7) when given, else from the env's generator (reseeded
+        by `seed`)."""
+        if seed is not None:
+            self.generator.manual_seed(seed)
+        if box_pose is None:
+            box_pose = self._spawn()
+        box_pose = torch.as_tensor(box_pose, dtype=self.m.dtype, device=self.device)
+        return core.reset(self.m, box_pose)
+
+    def observe(self, es: core.EnvState) -> torch.Tensor:
+        """The (num_envs, 15) state observation of `es` (kinematics only)."""
+        d = smooth_lanes.kinematics(self.m, es.physics)
+        return self._obs_vector(core.observations(self.m, d, es.physics, self.ids))
+
+    def step(self, es: core.EnvState, actions, reset_box_pose=None):
+        """Returns (state, obs (B, 15) f32, reward (B,), terminated (B,),
+        truncated (B,), info).  At episode boundaries obs is the new
+        episode's first observation and info["final_obs"] the terminal one.
+        New episodes spawn the cube at `reset_box_pose` (B, 7) when given,
+        else from the env's generator."""
+        es2, obs, reward, terminated, d = core.step_batched(
+            self.m, es, actions, self.ids, self.task)
+        truncated = es2.t >= self.max_episode_steps
+        done = terminated | truncated
+        final_obs = self._obs_vector(obs)
+        obs_out = final_obs
+        # The whole autoreset branch runs only when some env is done.  The
+        # test costs one device-to-host sync per control step.
+        if bool(done.any()):
+            if reset_box_pose is None:
+                reset_box_pose = self._spawn()
+            fresh = core.reset(self.m, torch.as_tensor(
+                reset_box_pose, dtype=self.m.dtype, device=self.device))
+            es2 = _where(done, fresh, es2)
+            reset_obs = self.observe(fresh)
+            obs_out = torch.where(done[:, None], reset_obs, final_obs)
+        return es2, obs_out, reward, terminated, truncated, {
+            "final_obs": final_obs, "ncon": d.ncon,
+        }
+
+
+def _where(mask, a, b):
+    """Per-env select between two batched dataclasses of tensors."""
+    if isinstance(a, torch.Tensor):
+        return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)), a, b)
+    return dataclasses.replace(a, **{
+        f.name: _where(mask, getattr(a, f.name), getattr(b, f.name))
+        for f in dataclasses.fields(a)
+    })

@@ -1,0 +1,142 @@
+"""The port stands alone: no JAX, gymnasium, MuJoCo or JAX-package imports.
+
+The machine with the GPU has none of those packages, so a single import of
+one of them anywhere on the port's path, even inside a function, breaks the
+port there.  Two guards:
+
+* an AST scan of every module of gym_so100_tpu_torch and of chip_smoke.py
+  for `import`/`from` statements (and import_module/__import__ calls with a
+  literal name) of a forbidden package;
+* a subprocess whose import system refuses those packages, which imports
+  chip_smoke, builds the Model on the CPU and takes two BatchedEnv control
+  steps through the plain PyTorch paths.
+"""
+
+import ast
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gymnasium", "mujoco",
+             "dm_control", "gym_so100_tpu")
+
+
+def _port_files():
+    files = sorted((ROOT / "gym_so100_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name):
+    return name.split(".")[0] in FORBIDDEN
+
+
+def _violations(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module and _forbidden(node.module):
+                bad.append(node.module)
+        elif isinstance(node, ast.Call):
+            fn = node.func
+            name = getattr(fn, "attr", None) or getattr(fn, "id", None)
+            if name in ("import_module", "__import__") and node.args:
+                arg = node.args[0]
+                if isinstance(arg, ast.Constant) and isinstance(arg.value, str) \
+                        and _forbidden(arg.value):
+                    bad.append(arg.value)
+    return bad
+
+
+def test_scan_finds_the_port():
+    files = _port_files()
+    assert len(files) > 15
+    assert all(f.exists() for f in files)
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_imports(path):
+    assert _violations(path) == []
+
+
+def test_scan_catches_imports_inside_functions(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text(textwrap.dedent("""
+        import os
+        def f():
+            import jax.numpy as jnp
+            from gym_so100_tpu.models import mjcf
+            import importlib
+            importlib.import_module("mujoco")
+        from .relative import thing
+    """))
+    assert _violations(probe) == ["jax.numpy", "gym_so100_tpu.models", "mujoco"]
+
+
+_RUN_WITHOUT = r"""
+import importlib.abc, sys
+FORBIDDEN = %r
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in FORBIDDEN:
+            raise ImportError(f"refused import of {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+sys.path.insert(0, %r)
+import torch
+import chip_smoke  # the work sits under `if __name__ == "__main__"`
+from gym_so100_tpu_torch.models.builder import build_model
+from gym_so100_tpu_torch.parallel.batch import BatchedEnv
+
+m, _ = build_model(max_contacts=16, device="cpu")
+assert m.nv == 12 and m.qpos0.dtype == torch.float32
+env = BatchedEnv(m, num_envs=8, device="cpu")
+es = env.reset(seed=0)
+g = torch.Generator().manual_seed(0)
+for _ in range(2):
+    es, obs, reward, term, trunc, info = env.step(es, torch.rand(8, 6, generator=g) * 2 - 1)
+    assert bool(torch.isfinite(obs).all()) and obs.shape == (8, 15)
+loaded = sorted(n for n in sys.modules if n.split(".")[0] in FORBIDDEN)
+assert not loaded, loaded
+print("ISOLATED OK")
+"""
+
+
+def test_port_runs_with_forbidden_packages_refused():
+    code = _RUN_WITHOUT % (FORBIDDEN, str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600, cwd=str(ROOT))
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "ISOLATED OK" in res.stdout
+
+
+def test_entry_points_default_to_the_gpu():
+    """Without a card, the default device raises instead of running on the
+    CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    from gym_so100_tpu_torch.parallel.batch import BatchedEnv
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BatchedEnv()
+
+
+def test_wrappers_never_fall_back_for_device_tensors():
+    """A tensor that is not on the CPU reaches the kernel path, which checks
+    it and raises: there is no silent fallback to the plain version."""
+    from gym_so100_tpu_torch.ops.collision import hull_lanes
+
+    meta = lambda *s, dt=torch.float32: torch.empty(*s, dtype=dt, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        hull_lanes.sweep_h(meta(75, 8), meta(225, 8), meta(25, 192), meta(132, 3),
+                           meta(25, dt=torch.int32), meta(129, dt=torch.int32),
+                           meta(129, dt=torch.int32))
