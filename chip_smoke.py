@@ -3,20 +3,23 @@
     python3 chip_smoke.py
 
 Phases, each printed on its own line:
- 1. build both CUDA kernels from gym_so100_tpu_torch/csrc with nvcc (sm_90a);
+ 1. build both CUDA kernels from gym_so100_tpu_torch/csrc with nvcc (sm_90a)
+    and print each kernel's ptxas lines (registers, spills);
  2. print the card's name and power limit (nvidia-smi);
- 3. check each kernel against its plain PyTorch version on the card, on the
-    inputs of real states of the 4096-env batch (float32, hull contacts on,
-    K = 16): at touchdown (the first control step after the third at which
-    at least half the envs have a contact) and after 12 control steps (the
-    cube landed, the arm reaching the cube and the table), and time both on
-    the latter;
+ 3. print each kernel's launch shape (envs per block, threads, dynamic
+    shared memory); check each kernel against its plain PyTorch version
+    on the card, on the inputs of real states of the 4096-env batch
+    (float32, hull contacts on, K = 16): at touchdown (the first control
+    step after the third at which at least half the envs have a contact)
+    and after 12 control steps (the cube landed, the arm reaching the cube
+    and the table), and time both on the latter;
  4. run BatchedEnv(num_envs=4096, device="cuda"): reset, then control steps
     with seeded random actions and one autoreset; assert finite results and
     that each kernel launched exactly 10 times per control step; time the
     env-steps per second after a warm-up;
- 5. print the kernel table as one JSON line, then the result line
-    {"ok": true, "device": {...}}.
+ 5. print the build, ptxas, launch-shape and check lines again (so that
+    the end of the output holds them), the kernel table as one JSON line,
+    the card, then the result line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -44,8 +47,13 @@ H100_F32_OPS_PER_S = 67e12   # float32 outside the tensor cores
 EPS32 = 1.1920929e-07        # float32 machine epsilon
 
 
-def log(msg):
+RECAP = []   # the build, launch-shape and check lines, printed again at the end
+
+
+def log(msg, recap=False):
     print(msg, flush=True)
+    if recap:
+        RECAP.append(msg)
 
 
 def gpu_name_and_power():
@@ -76,6 +84,13 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def log_shape(name, shape, B):
+    envs, threads, smem = shape
+    blocks = -(-B // envs)
+    log(f"{name} launch: {envs} envs per block, {threads} threads, {smem} B dynamic "
+        f"shared memory, {blocks} blocks at B = {B}", recap=True)
+
+
 def check_hull(env, es, timed):
     """Kernel 1 against sweep_h_plain on the geom poses of `es`: the same
     float32 operations in the same order, so the results must be equal
@@ -97,7 +112,7 @@ def check_hull(env, es, timed):
     p_pack = torch.cat(p).contiguous()
     R_pack = torch.cat([R[j][k] for j in range(3) for k in range(3)]).contiguous()
     args = (p_pack, R_pack, tb.verts, tb.D, tb.counts, tb.i1, tb.i2)
-    out_k = hull_lanes.sweep_h(*args)
+    out_k = hull_lanes.sweep_h(p_pack, R_pack, tb)
     out_p = hull_lanes.sweep_h_plain(*args)
     torch.cuda.synchronize()
     P, B = tb.P, p_pack.shape[1]
@@ -114,14 +129,16 @@ def check_hull(env, es, timed):
                   if act.any() else 0.0 for j in range(3))
     assert pos_err <= 1e-5, f"hull: witness positions differ by {pos_err}"
     log(f"hull sweep check: active pairs {int(act.sum())}/{P * B}, depth/normal max "
-        f"abs err {max_err:.3g}, witness pos err {pos_err:.3g}")
+        f"abs err {max_err:.3g}, witness pos err {pos_err:.3g}", recap=True)
     if not timed:
         return None
 
     out = torch.empty_like(out_k)
     G, ND = tb.G, tb.D.shape[0]
     Vmax = tb.verts.shape[1] // 3
-    ms = cuda_ms(lambda: kernels.launch("gst_hull_sweep", *args, out, G, ND, P, Vmax, B), 50)
+    log_shape("hull_sweep", kernels.launch_shape("gst_hull_sweep", G, ND, P, tb.vtot), B)
+    ms = cuda_ms(lambda: kernels.launch(
+        "gst_hull_sweep", *args, out, G, ND, P, Vmax, tb.vtot, B), 50)
     plain_ms = cuda_ms(lambda: hull_lanes.sweep_h_plain(*args), 5)
     # least work: inputs read once, output written once; operations of the
     # sweep (15 for the local direction, 5 per vertex support, 2 per vertex
@@ -221,9 +238,10 @@ def check_solver(env, es, timed, floor_samples=0):
         bounds = {k: max(b, 2 * floor[k]) for k, b in bounds.items()}
         log(f"solver check ({zones}): kernel vs plain: {fmt(st)}; plain vs "
             f"one-ulp-perturbed plain (worst of {floor_samples}): {fmt(floor)}; "
-            f"bounds: {fmt(bounds)}")
+            f"bounds: {fmt(bounds)}", recap=True)
     else:
-        log(f"solver check ({zones}): kernel vs plain: {fmt(st)}")
+        log(f"solver check ({zones}): kernel vs plain: {fmt(st)}; bounds: {fmt(bounds)}",
+            recap=True)
     for k, bound in bounds.items():
         assert st[k] < bound, f"solver: {k} {st[k]:.3g} >= {bound:.3g}"
     if not timed:
@@ -232,12 +250,12 @@ def check_solver(env, es, timed, floor_samples=0):
     inp = solver_lanes.pack_fused_inputs(m, qM, a0, efc, warm)
     NE, B = efc.aref.shape
     K = efc.con_mu.shape[0]
-    jar = torch.empty(NE, B, device=a0.device)
-    djar = torch.empty(NE, B, device=a0.device)
     out = torch.empty(2 * m.nv + 1, B, device=a0.device)
+    log_shape("newton_solve", kernels.launch_shape(
+        "gst_newton_solve", NE, efc.neq, efc.nf, efc.nl, K), B)
     ms = cuda_ms(lambda: kernels.launch(
         "gst_newton_solve", inp["J"], inp["aref"], inp["D"], inp["aux"], inp["us"],
-        inp["qM"], inp["x0"], inp["warm"], jar, djar, out, NE, efc.neq, efc.nf,
+        inp["qM"], inp["x0"], inp["warm"], out, NE, efc.neq, efc.nf,
         efc.nl, K, B, *solver_lanes.budgets(m, torch.float32)), 20)
     plain_ms = cuda_ms(lambda: solver_lanes.solve_plain(m, qM, a0, efc, warm), 3)
     # least work: inputs read once, output written once; per executed
@@ -366,10 +384,12 @@ def main():
     t0 = time.perf_counter()
     kernels.library()
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc "
-        f"{kernels.build_info.get('seconds', 0.0):.1f} s) -> {kernels.build_info['path']}")
+        f"{kernels.build_info.get('seconds', 0.0):.1f} s) -> {kernels.build_info['path']}",
+        recap=True)
+    # ptxas prints, per kernel, its name, then its spill and register lines
     for line in kernels.build_info.get("log", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+        if "Compiling entry function" in line or "registers" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}", recap=True)
 
     # 2. the card
     smi = gpu_name_and_power()
@@ -393,7 +413,7 @@ def main():
         assert steps < WARM_STEPS + TOUCHDOWN_MAX, "no touchdown: too few envs have a contact"
         es = advance(env, es, 1, gen)
         steps += 1
-    log(f"touchdown after {steps} control steps")
+    log(f"touchdown after {steps} control steps", recap=True)
     check_hull(env, es, timed=False)
     check_solver(env, es, timed=False)
     es = advance(env, es, LANDED_STEPS - steps, gen)
@@ -434,6 +454,8 @@ def main():
             f"{row['launches']} launches, on {card}")
 
     # 5. results
+    for line in RECAP:
+        log(f"recap: {line}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}),

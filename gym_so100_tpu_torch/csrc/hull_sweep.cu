@@ -1,4 +1,4 @@
-// Hull support sweep + per-pair overlap, one CUDA block per env.
+// Hull support sweep + per-pair overlap, E envs per CUDA block.
 //
 // Replaces the Pallas kernel gym_so100_tpu/ops/collision/hull_lanes.py::
 // _sweep_h_pallas.  For each of G hull geoms it rotates the ND fixed
@@ -7,15 +7,33 @@
 // Tbot (G, ND).  For each of P pairs, h[d] = Ttop[g1][d] - Tbot[g2][d];
 // depth = -min_d h, normal = D[argmin], the FIRST minimal index winning ties.
 //
-// What bounds it on an H100: arithmetic.  Per env it does G*ND*(9 + 5*V)
-// flops on 12*G input floats and writes 4*P outputs, so bytes are tiny and
-// the vertex chains dominate (about 0.5 MFLOP per env at the SO100 scene's
-// vertex counts).  The design keeps both (G, ND) tables of an env in shared
-// memory (2*25*132*4 B = 26.4 KB at G=25, ND=132), so the P pair reductions
-// never touch device memory: threads stride over (g, d) for the sweep, then
-// over pairs for the min/argmin.  Inputs and outputs are batch-minor
-// (rows, B), so a block's reads and writes are strided by B; they are a few
-// hundred floats per env and not what limits it.
+// What bounds it on an H100: instruction issue.  Per env it does about
+// G*ND*(9 + 7*V) float operations on 12*G input floats and writes 4*P
+// outputs, so bytes are tiny.  With one env per block (the first design)
+// every (geom, direction) cell issued three loads of `verts` per vertex for
+// seven arithmetic operations, and every block reloaded the same vertices;
+// loads and address arithmetic set the pace.  The rounding contract below
+// forbids FMA, so the floor is about twice the bound that counts a
+// multiply-add as two operations at the FMA rate.
+//
+// Design: a block serves E = 8 envs.  It stages, once:
+// the E envs' p and R rows (12*G floats each, read as rows of E consecutive
+// floats), and every geom's true vertices as float4 (604 vertices, 9.7 KB).
+// A thread owns one (geom, direction) cell for ALL E envs: one shared float4
+// load of a vertex feeds E support dot products, so loads per arithmetic
+// operation fall by E.  Both tables of every env stay in shared memory,
+// rows padded to ND|1 floats so that pair threads reading different geoms
+// spread over the banks: 2*G*(ND|1)*4 B = 26.6 KB per env.  At G = 25,
+// ND = 132, E = 8 that is 212.8 KB of tables + 9.6 KB of poses + 9.7 KB of
+// vertices = 232,164 B of the 232,448 a block may hold, so one block per
+// SM.  E is fixed at 8; a scene whose tables do not fit makes the entry
+// point return cudaErrorInvalidValue.  The block has 512 threads (16
+// warps; 256 were slower on the H100), 6.4 cells per thread, about 90
+// registers.  The pair phase spreads the P*E
+// (pair, env) items over the block, env fastest, so its outputs go out as
+// rows of E consecutive floats.  Left on the table: with one block per SM
+// the staging, sweep and pair phases of a block do not overlap, and the
+// 1,032 pair items take three rounds of 512 (the third for 8 items).
 //
 // Rounding: every product and sum uses __fmul_rn/__fadd_rn, which nvcc
 // never contracts into an FMA, in the same order as the plain PyTorch
@@ -26,7 +44,23 @@
 
 namespace {
 
-__global__ void hull_sweep_kernel(
+constexpr int THREADS = 512;
+constexpr int E = 8;                    // envs per block
+constexpr size_t SMEM_LIMIT = 232448;   // dynamic shared memory of one block
+
+struct Shape {
+    int G, ND, NDp, P, Vtot;
+
+    __host__ __device__ size_t tables() const { return (size_t)E * 2 * G * NDp; }
+    __host__ __device__ size_t poses() const { return (size_t)E * 12 * G; }
+    // float offset of the vertex copy, rounded up to a float4 boundary
+    __host__ __device__ size_t verts_at() const { return (tables() + poses() + 3) & ~(size_t)3; }
+    __host__ __device__ size_t bytes() const {
+        return (verts_at() + 4 * (size_t)Vtot) * sizeof(float) + G * sizeof(int);
+    }
+};
+
+__global__ void __launch_bounds__(THREADS) hull_sweep_kernel(
     const float* __restrict__ p,      // (3G, B) rows j*G + g
     const float* __restrict__ R,      // (9G, B) rows (j*3+k)*G + g
     const float* __restrict__ verts,  // (G, 3*Vmax) col v*3 + k
@@ -35,55 +69,96 @@ __global__ void hull_sweep_kernel(
     const int* __restrict__ i1,       // (P,)
     const int* __restrict__ i2,       // (P,)
     float* __restrict__ out,          // (4P, B)
-    int G, int ND, int P, int Vmax, int B)
+    Shape s, int Vmax, int B)
 {
     extern __shared__ float smem[];
-    float* Tt = smem;                 // (G, ND)
-    float* Tb = Tt + G * ND;          // (G, ND)
-    float* pr = Tb + G * ND;          // 12G: this env's p then R rows
-    const int b = blockIdx.x;
+    const int G = s.G, ND = s.ND, NDp = s.NDp, P = s.P;
+    float* tab = smem;                          // env e: Ttop rows, then Tbot rows
+    float* pr = smem + s.tables();              // env e: 12G floats, p then R rows
+    float4* vs = reinterpret_cast<float4*>(smem + s.verts_at());
+    int* vstart = reinterpret_cast<int*>(vs + s.Vtot);
+    const int b0 = blockIdx.x * E;
     const size_t Bs = (size_t)B;
 
-    for (int r = threadIdx.x; r < 12 * G; r += blockDim.x) {
-        pr[r] = r < 3 * G ? p[r * Bs + b] : R[(r - 3 * G) * Bs + b];
+    // ---- stage the poses (rows of E consecutive envs) and the vertices ----
+    for (int q = threadIdx.x; q < 12 * G * E; q += blockDim.x) {
+        const int r = q / E, e = q - r * E;
+        float v = 0.f;
+        if (b0 + e < B) v = r < 3 * G ? p[r * Bs + b0 + e] : R[(r - 3 * G) * Bs + b0 + e];
+        pr[e * 12 * G + r] = v;
+    }
+    if (threadIdx.x == 0) {
+        int st = 0;
+        for (int g = 0; g < G; ++g) {
+            vstart[g] = st;
+            st += counts[g];
+        }
     }
     __syncthreads();
-    const float* pg = pr;             // p row j of geom g: pg[j*G + g]
-    const float* Rg = pr + 3 * G;     // R entry (j, k) of geom g: Rg[(j*3+k)*G + g]
+    for (int q = threadIdx.x; q < s.Vtot; q += blockDim.x) {
+        int g = 0;
+        while (g + 1 < G && vstart[g + 1] <= q) ++g;
+        const float* vg = verts + ((size_t)g * Vmax + (q - vstart[g])) * 3;
+        vs[q] = make_float4(vg[0], vg[1], vg[2], 0.f);
+    }
+    __syncthreads();
 
+    // ---- support sweep: one (g, d) cell for all E envs per step ----
     for (int w = threadIdx.x; w < G * ND; w += blockDim.x) {
         const int g = w / ND;
         const int d = w - g * ND;
         const float D0 = D[3 * d], D1 = D[3 * d + 1], D2 = D[3 * d + 2];
-        float ld[3];
+        float ld[E][3];
 #pragma unroll
-        for (int k = 0; k < 3; ++k) {
-            ld[k] = __fadd_rn(__fadd_rn(__fmul_rn(D0, Rg[(0 + k) * G + g]),
-                                        __fmul_rn(D1, Rg[(3 + k) * G + g])),
-                              __fmul_rn(D2, Rg[(6 + k) * G + g]));
+        for (int e = 0; e < E; ++e) {
+            const float* Rg = pr + e * 12 * G + 3 * G;   // R entry (j, k): Rg[(j*3+k)*G + g]
+#pragma unroll
+            for (int k = 0; k < 3; ++k) {
+                ld[e][k] = __fadd_rn(__fadd_rn(__fmul_rn(D0, Rg[(0 + k) * G + g]),
+                                               __fmul_rn(D1, Rg[(3 + k) * G + g])),
+                                     __fmul_rn(D2, Rg[(6 + k) * G + g]));
+            }
         }
-        const float* vg = verts + (size_t)g * 3 * Vmax;
-        float smax = __fadd_rn(__fadd_rn(__fmul_rn(ld[0], vg[0]), __fmul_rn(ld[1], vg[1])),
-                               __fmul_rn(ld[2], vg[2]));
-        float smin = smax;
+        const float4* vg = vs + vstart[g];
+        float smax[E], smin[E];
+        {
+            const float4 v = vg[0];
+#pragma unroll
+            for (int e = 0; e < E; ++e) {
+                smax[e] = __fadd_rn(__fadd_rn(__fmul_rn(ld[e][0], v.x), __fmul_rn(ld[e][1], v.y)),
+                                    __fmul_rn(ld[e][2], v.z));
+                smin[e] = smax[e];
+            }
+        }
         const int V = counts[g];
         for (int v = 1; v < V; ++v) {
-            const float s = __fadd_rn(
-                __fadd_rn(__fmul_rn(ld[0], vg[3 * v]), __fmul_rn(ld[1], vg[3 * v + 1])),
-                __fmul_rn(ld[2], vg[3 * v + 2]));
-            smax = fmaxf(smax, s);
-            smin = fminf(smin, s);
+            const float4 u = vg[v];              // one load serves all E envs
+#pragma unroll
+            for (int e = 0; e < E; ++e) {
+                const float t = __fadd_rn(
+                    __fadd_rn(__fmul_rn(ld[e][0], u.x), __fmul_rn(ld[e][1], u.y)),
+                    __fmul_rn(ld[e][2], u.z));
+                smax[e] = fmaxf(smax[e], t);
+                smin[e] = fminf(smin[e], t);
+            }
         }
-        const float dp = __fadd_rn(__fadd_rn(__fmul_rn(D0, pg[g]), __fmul_rn(D1, pg[G + g])),
-                                   __fmul_rn(D2, pg[2 * G + g]));
-        Tt[w] = __fadd_rn(smax, dp);
-        Tb[w] = __fadd_rn(smin, dp);
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+            const float* pg = pr + e * 12 * G;           // p row j of geom g: pg[j*G + g]
+            const float dp = __fadd_rn(__fadd_rn(__fmul_rn(D0, pg[g]), __fmul_rn(D1, pg[G + g])),
+                                       __fmul_rn(D2, pg[2 * G + g]));
+            tab[(e * 2 * G + g) * NDp + d] = __fadd_rn(smax[e], dp);
+            tab[(e * 2 * G + G + g) * NDp + d] = __fadd_rn(smin[e], dp);
+        }
     }
     __syncthreads();
 
-    for (int pp = threadIdx.x; pp < P; pp += blockDim.x) {
-        const float* t1 = Tt + i1[pp] * ND;
-        const float* t2 = Tb + i2[pp] * ND;
+    // ---- per (pair, env): min and first argmin over the directions ----
+    for (int q = threadIdx.x; q < P * E; q += blockDim.x) {
+        const int pp = q / E, e = q - pp * E;
+        if (b0 + e >= B) continue;
+        const float* t1 = tab + (e * 2 * G + i1[pp]) * NDp;
+        const float* t2 = tab + (e * 2 * G + G + i2[pp]) * NDp;
         float best = __fsub_rn(t1[0], t2[0]);
         int bd = 0;
         for (int d = 1; d < ND; ++d) {
@@ -93,28 +168,44 @@ __global__ void hull_sweep_kernel(
                 bd = d;
             }
         }
-        out[pp * Bs + b] = -best;
-        out[(P + pp) * Bs + b] = D[3 * bd];
-        out[(2 * P + pp) * Bs + b] = D[3 * bd + 1];
-        out[(3 * P + pp) * Bs + b] = D[3 * bd + 2];
+        const size_t col = (size_t)b0 + e;
+        out[pp * Bs + col] = -best;
+        out[(P + pp) * Bs + col] = D[3 * bd];
+        out[(2 * P + pp) * Bs + col] = D[3 * bd + 1];
+        out[(3 * P + pp) * Bs + col] = D[3 * bd + 2];
     }
 }
 
 }  // namespace
 
+// Launch shape for these sizes: shape[0] envs per block, shape[1] threads,
+// shape[2] bytes of dynamic shared memory.  Vtot is the sum of the counts.
+extern "C" void gst_hull_sweep_shape(int G, int ND, int P, int Vtot, int* shape)
+{
+    const Shape s{G, ND, ND | 1, P, Vtot};
+    shape[0] = E;
+    shape[1] = THREADS;
+    shape[2] = (int)s.bytes();
+}
+
+// Returns cudaErrorInvalidValue when the E-env block's tables do not fit in
+// one block's shared memory (a scene with more geoms, directions or
+// vertices than the SO100 scene needs fewer envs per block).
 extern "C" int gst_hull_sweep(
     const float* p, const float* R, const float* verts, const float* D,
     const int* counts, const int* i1, const int* i2, float* out,
-    int G, int ND, int P, int Vmax, int B, void* stream)
+    int G, int ND, int P, int Vmax, int Vtot, int B, void* stream)
 {
     if (B == 0) return 0;
-    const size_t smem = (size_t)(2 * G * ND + 12 * G) * sizeof(float);
+    const Shape s{G, ND, ND | 1, P, Vtot};
+    const size_t smem = s.bytes();
+    if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
             hull_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
-    hull_sweep_kernel<<<B, 256, smem, (cudaStream_t)stream>>>(
-        p, R, verts, D, counts, i1, i2, out, G, ND, P, Vmax, B);
+    hull_sweep_kernel<<<(B + E - 1) / E, THREADS, smem, (cudaStream_t)stream>>>(
+        p, R, verts, D, counts, i1, i2, out, s, Vmax, B);
     return (int)cudaGetLastError();
 }

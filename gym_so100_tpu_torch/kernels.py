@@ -88,21 +88,33 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # p, R, verts, D, counts, i1, i2, out, G, ND, P, Vmax, B, stream
-    "gst_hull_sweep": [_P] * 8 + [_I] * 5 + [_P],
-    # J, aref, D, aux, us, qMl, x0, warm, jar, djar, out,
+    # p, R, verts, D, counts, i1, i2, out, G, ND, P, Vmax, Vtot, B, stream
+    "gst_hull_sweep": ([_P] * 8 + [_I] * 6 + [_P], ctypes.c_int),
+    # G, ND, P, Vtot, shape[3]
+    "gst_hull_sweep_shape": ([_I] * 4 + [_P], None),
+    # J, aref, D, aux, us, qMl, x0, warm, out,
     # NE, neq, nf, nl, K, B, max_iters, ls_len, bracket_len, tol, stream
-    "gst_newton_solve": [_P] * 11 + [_I] * 9 + [_F, _P],
+    "gst_newton_solve": ([_P] * 9 + [_I] * 9 + [_F, _P], ctypes.c_int),
+    # NE, neq, nf, nl, K, shape[3]
+    "gst_newton_solve_shape": ([_I] * 5 + [_P], None),
 }
 
 
 def _load(path: Path):
     lib = ctypes.CDLL(str(path))
-    for name, argtypes in _SIGNATURES.items():
+    for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
     return lib
+
+
+def launch_shape(name, *sizes):
+    """(envs per block, threads per block, bytes of dynamic shared memory)
+    of kernel `name` at these sizes, from its C entry point `name_shape`."""
+    shape = (ctypes.c_int * 3)()
+    getattr(library(), f"{name}_shape")(*sizes, ctypes.cast(shape, ctypes.c_void_p))
+    return tuple(shape)
 
 
 def check(t: torch.Tensor, shape, dtype, name):

@@ -96,6 +96,7 @@ class HullTables:
         self.verts = as_t(np.transpose(verts, (2, 1, 0)).reshape(G, -1), dtype)
         self.D = as_t(_dir_set_np(N_PEN_DIRS), dtype)
         self.counts = as_t(counts, torch.int32)
+        self.vtot = int(counts.sum())
         self.i1 = as_t(i1, torch.int32)
         self.i2 = as_t(i2, torch.int32)
         self.lcen = as_t(lcen, dtype)
@@ -170,11 +171,13 @@ def sweep_h_plain(p_pack, R_pack, verts, D, counts, i1, i2):
     return torch.cat([-hmin, nrm[..., 0], nrm[..., 1], nrm[..., 2]], dim=0)
 
 
-def sweep_h(p_pack, R_pack, verts, D, counts, i1, i2):
-    """Hull support sweep + per-pair depth and normal, (4P, B).
+def sweep_h(p_pack, R_pack, tb):
+    """Hull support sweep + per-pair depth and normal, (4P, B), for the
+    static tables `tb` (a HullTables).
 
     CPU tensors run `sweep_h_plain`; CUDA tensors launch the CUDA kernel
     (float32 only) or raise."""
+    verts, D, counts, i1, i2 = tb.verts, tb.D, tb.counts, tb.i1, tb.i2
     if p_pack.device.type == "cpu":
         return sweep_h_plain(p_pack, R_pack, verts, D, counts, i1, i2)
     from ... import kernels
@@ -193,7 +196,7 @@ def sweep_h(p_pack, R_pack, verts, D, counts, i1, i2):
     out = torch.empty(4 * P, B, dtype=torch.float32, device=p_pack.device)
     kernels.launch(
         "gst_hull_sweep", p_pack, R_pack, verts, D, counts, i1, i2, out,
-        G, ND, P, verts.shape[1] // 3, B,
+        G, ND, P, verts.shape[1] // 3, tb.vtot, B,
     )
     sweep_h.launches += 1
     return out
@@ -220,7 +223,7 @@ def collide_hulls_lanes(m, d):
     R = [[gm[..., j, k].T for k in range(3)] for j in range(3)]
     p_pack = torch.cat(p, dim=0).contiguous()
     R_pack = torch.cat([R[j][k] for j in range(3) for k in range(3)], dim=0).contiguous()
-    out = sweep_h(p_pack, R_pack, tb.verts, tb.D, tb.counts, tb.i1, tb.i2)
+    out = sweep_h(p_pack, R_pack, tb)
     P = tb.P
     depth = out[:P]
     nrm = [out[(1 + j) * P:(2 + j) * P] for j in range(3)]

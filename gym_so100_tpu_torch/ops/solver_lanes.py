@@ -271,7 +271,12 @@ def pack_fused_inputs(m: Model, qM, a0, efc: EfcLanes, warmstart=None):
 
 def solve_fused(m: Model, qM, a0, efc: EfcLanes, warmstart=None):
     """Launch the whole-solve CUDA kernel (float32, nv = 12).  Same
-    arguments and results as `solve_plain`."""
+    arguments and results as `solve_plain`.
+
+    The kernel runs one warp per env, eight envs per block, and keeps every
+    intermediate (jar, djar, the Hessian and its factor) in shared memory,
+    so the only device memory it touches is the packed inputs and the
+    (2*nv + 1, B) output allocated here."""
     from .. import kernels
 
     B, nv = a0.shape
@@ -289,13 +294,10 @@ def solve_fused(m: Model, qM, a0, efc: EfcLanes, warmstart=None):
     kernels.check(inp["qM"], (nv * (nv + 1) // 2, B), f32, "qM")
     kernels.check(inp["x0"], (nv, B), f32, "x0")
     kernels.check(inp["warm"], (nv, B), f32, "warmstart")
-    dev = a0.device
-    jar = torch.empty(NE, B, dtype=f32, device=dev)
-    djar = torch.empty(NE, B, dtype=f32, device=dev)
-    out = torch.empty(2 * nv + 1, B, dtype=f32, device=dev)
+    out = torch.empty(2 * nv + 1, B, dtype=f32, device=a0.device)
     kernels.launch(
         "gst_newton_solve", inp["J"], inp["aref"], inp["D"], inp["aux"],
-        inp["us"], inp["qM"], inp["x0"], inp["warm"], jar, djar, out,
+        inp["us"], inp["qM"], inp["x0"], inp["warm"], out,
         NE, efc.neq, efc.nf, efc.nl, K, B, *budgets(m, f32),
     )
     solve_fused.launches += 1

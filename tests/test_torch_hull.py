@@ -91,7 +91,7 @@ def test_sweep_matches_pallas_interpret(setup, jax_out):
     p_pack = torch.from_numpy(np.concatenate([gx[:, gidx, k].T for k in range(3)]))
     R_pack = torch.from_numpy(np.concatenate(
         [gm[:, gidx, j, k].T for j in range(3) for k in range(3)]))
-    out = hull_lanes.sweep_h(p_pack, R_pack, tb.verts, tb.D, tb.counts, tb.i1, tb.i2)
+    out = hull_lanes.sweep_h(p_pack, R_pack, tb)
     P = tb.P
     assert out.shape == (4 * P, B) and out.dtype == torch.float32
     np.testing.assert_allclose(out[:P].numpy(), r_dep, atol=1e-6, rtol=1e-6)

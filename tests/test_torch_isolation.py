@@ -16,6 +16,7 @@ import ast
 import subprocess
 import sys
 import textwrap
+import types
 from pathlib import Path
 
 import pytest
@@ -136,7 +137,8 @@ def test_wrappers_never_fall_back_for_device_tensors():
     from gym_so100_tpu_torch.ops.collision import hull_lanes
 
     meta = lambda *s, dt=torch.float32: torch.empty(*s, dtype=dt, device="meta")
+    tb = types.SimpleNamespace(
+        verts=meta(25, 192), D=meta(132, 3), counts=meta(25, dt=torch.int32),
+        i1=meta(129, dt=torch.int32), i2=meta(129, dt=torch.int32), vtot=604)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        hull_lanes.sweep_h(meta(75, 8), meta(225, 8), meta(25, 192), meta(132, 3),
-                           meta(25, dt=torch.int32), meta(129, dt=torch.int32),
-                           meta(129, dt=torch.int32))
+        hull_lanes.sweep_h(meta(75, 8), meta(225, 8), tb)

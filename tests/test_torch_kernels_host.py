@@ -3,19 +3,29 @@
 The machine without a GPU has no nvcc, but the kernels in
 gym_so100_tpu_torch/csrc are plain C++ apart from a few CUDA keywords.  This
 test compiles them with the host C++ compiler through a small shim (CUDA
-qualifiers dropped, shared memory a static buffer, each launch a serial loop
-over blocks and threads; the hull kernel, which synchronizes its threads,
-runs one thread per block), with floating-point contraction off, and
-compares them with their plain PyTorch versions:
+qualifiers dropped, shared memory a static buffer), with floating-point
+contraction off, and runs each launch with its real block shape: the
+blocks one after another, each block's threads as host threads.
+`__syncthreads` is a barrier of the block, `__syncwarp` a barrier of the
+thread's warp, and `__shfl_sync`, `__shfl_xor_sync` and `__ballot_sync`
+an exchange through a per-block buffer between two warp barriers, so a warp-cooperative kernel runs as on the card
+(a missing barrier shows up as a race).  It compares them with their plain
+PyTorch versions:
 
 * hull sweep, float32: equal to `sweep_h_plain` (same operations, same
-  order);
+  order), also at a batch that leaves the last block partly empty;
+  tables too large for a block make the entry point return an error;
 * Newton solve, built in float64 (every `float` of the source made
   `double`): equal to `solve_plain` in float64 under the same budgets to
   1e-9 on at least 95% of the lanes, on a state whose contacts reach both
   the top and the middle zone of the elliptic cone (a lane can part at a knife edge of the
   line search, e.g. the sign of a directional derivative that is 0 up to
-  rounding); built in float32: finite, with iteration counts in range.
+  rounding); built in float32: finite, with iteration counts in range;
+  in both builds, the results of a batch that leaves the last block partly
+  empty equal those of a full batch on its lanes;
+* the float64 check fails for mutated copies of the solver source: a
+  middle-zone gradient or Hessian term scaled, or the rows of one lane of
+  the warp dropped from the gradient.
 
 It skips where no host C++ compiler is installed.
 """
@@ -40,23 +50,32 @@ from gym_so100_tpu_torch.ops.collision import hull_lanes, narrowphase
 CSRC = Path(__file__).resolve().parents[1] / "gym_so100_tpu_torch" / "csrc"
 
 SHIM = r"""
+#include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
+#include <cstring>
+#include <memory>
+#include <thread>
+#include <vector>
 #define __global__
 #define __device__
 #define __host__
 #define __forceinline__ inline
 #define __restrict__
-#define __shared__
+#define __shared__ static
+#define __launch_bounds__(...)
 struct dim3_ { unsigned x, y, z; };
-static dim3_ blockIdx, blockDim, threadIdx;
+static thread_local dim3_ blockIdx, threadIdx;
+static dim3_ blockDim;
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class F> cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
-inline void __syncthreads() {}
+struct float4 { float x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
@@ -68,11 +87,74 @@ inline double sqrtf(double x) { return std::sqrt(x); }
 inline double fmaxf(double a, double b) { return a > b ? a : b; }
 inline double fminf(double a, double b) { return a < b ? a : b; }
 inline double fabsf(double a) { return a < 0 ? -a : a; }
+
+// one block at a time: its threads are host threads
+struct Block_ {
+    std::unique_ptr<std::barrier<>> all;
+    std::vector<std::unique_ptr<std::barrier<>>> warps;
+    std::uint64_t xbuf[1024];
+};
+static Block_* blk_;
+inline void __syncthreads() { blk_->all->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+    blk_->warps[threadIdx.x / 32]->arrive_and_wait();
+}
+template <class T> T __shfl_xor_sync(unsigned, T v, int m) {
+    std::uint64_t u = 0;
+    std::memcpy(&u, &v, sizeof(T));
+    blk_->xbuf[threadIdx.x] = u;
+    __syncwarp();
+    u = blk_->xbuf[threadIdx.x ^ m];
+    __syncwarp();
+    T r;
+    std::memcpy(&r, &u, sizeof(T));
+    return r;
+}
+template <class T> T __shfl_sync(unsigned, T v, int src) {
+    std::uint64_t u = 0;
+    std::memcpy(&u, &v, sizeof(T));
+    blk_->xbuf[threadIdx.x] = u;
+    __syncwarp();
+    u = blk_->xbuf[(threadIdx.x & ~31u) + src];
+    __syncwarp();
+    T r;
+    std::memcpy(&r, &u, sizeof(T));
+    return r;
+}
+inline unsigned __ballot_sync(unsigned, int pred) {
+    blk_->xbuf[threadIdx.x] = pred != 0;
+    __syncwarp();
+    unsigned bal = 0;
+    const unsigned w0 = threadIdx.x & ~31u;
+    for (unsigned l = 0; l < 32 && w0 + l < blockDim.x; ++l)
+        bal |= (unsigned)blk_->xbuf[w0 + l] << l;
+    __syncwarp();
+    return bal;
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+template <class F> void launch_(unsigned grid, unsigned block, F body) {
+    blockDim = {block, 1, 1};
+    for (unsigned b = 0; b < grid; ++b) {
+        Block_ bk;
+        bk.all.reset(new std::barrier<>(block));
+        for (unsigned w = 0; w * 32 < block; ++w)
+            bk.warps.emplace_back(new std::barrier<>(block - w * 32 < 32 ? block - w * 32 : 32));
+        blk_ = &bk;
+        std::vector<std::thread> th;
+        for (unsigned t = 0; t < block; ++t)
+            th.emplace_back([=] { blockIdx = {b, 0, 0}; threadIdx = {t, 0, 0}; body(); });
+        for (auto& x : th) x.join();
+    }
+}
 """
 
 
-def _host_source(name, one_thread, real):
+def _host_source(name, real, mutate=None):
     s = (CSRC / f"{name}.cu").read_text()
+    if mutate is not None:
+        old, new = mutate
+        assert s.count(old) == 1, f"mutation target not unique: {old!r}"
+        s = s.replace(old, new)
     s = s.replace("#include <cuda_runtime.h>", "").replace("#include <math.h>", "")
     s = s.replace("extern __shared__ float smem[];", "static float smem[1 << 20];")
 
@@ -86,43 +168,60 @@ def _host_source(name, one_thread, real):
                 cur = ""
             else:
                 cur += ch
-        grid, block = parts[0].strip(), ("1" if one_thread else parts[1].strip())
-        return (f"for (unsigned b_ = 0; b_ < (unsigned)({grid}); ++b_) "
-                f"for (unsigned t_ = 0; t_ < (unsigned)({block}); ++t_) {{ "
-                f"blockIdx.x = b_; blockDim.x = {block}; threadIdx.x = t_; {kern}({args}); }}")
+        grid, block = parts[0].strip(), parts[1].strip()
+        return f"launch_((unsigned)({grid}), (unsigned)({block}), [&] {{ {kern}({args}); }});"
 
-    s = re.sub(r"(\w+)<<<(.*?)>>>\((.*?)\);", launch, s, flags=re.S)
+    s = re.sub(r"(\w+(?:<\w+>)?)<<<(.*?)>>>\((.*?)\);", launch, s, flags=re.S)
     if real == "double":
         s = re.sub(r"\bfloat\b", "double", s)
     return s
 
 
-def _build(tmp, name, one_thread, real):
-    src = tmp / f"{name}_{real}.cpp"
-    src.write_text(SHIM + _host_source(name, one_thread, real))
-    lib = tmp / f"lib{name}_{real}.so"
+def _build(tmp, name, real, mutate=None, tag=""):
+    src = tmp / f"{name}_{real}{tag}.cpp"
+    src.write_text(SHIM + _host_source(name, real, mutate))
+    lib = tmp / f"lib{name}_{real}{tag}.so"
     res = subprocess.run(
-        ["g++", "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
+        ["g++", "-std=c++20", "-O2", "-ffp-contract=off", "-shared", "-fPIC", "-pthread",
          "-Wno-unknown-pragmas", "-o", str(lib), str(src)],
         capture_output=True, text=True)
     assert res.returncode == 0, res.stderr
     return ctypes.CDLL(str(lib))
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _solver_lib(tmp, real, mutate=None, tag=""):
+    lib = _build(tmp, "newton_solve", real, mutate, tag)
+    ct = ctypes.c_float if real == "float" else ctypes.c_double
+    lib.gst_newton_solve.argtypes = [_P] * 9 + [_I] * 9 + [ct, _P]
+    return lib
+
+
 @pytest.fixture(scope="module")
-def host_libs(tmp_path_factory):
+def host_tmp(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("no host C++ compiler")
-    tmp = tmp_path_factory.mktemp("csrc_host")
-    P, I = ctypes.c_void_p, ctypes.c_int
-    hull = _build(tmp, "hull_sweep", True, "float")
-    hull.gst_hull_sweep.argtypes = [P] * 8 + [I] * 5 + [P]
+    return tmp_path_factory.mktemp("csrc_host")
+
+
+@pytest.fixture(scope="module")
+def host_libs(host_tmp):
+    hull = _build(host_tmp, "hull_sweep", "float")
+    hull.gst_hull_sweep.argtypes = [_P] * 8 + [_I] * 6 + [_P]
     libs = dict(hull=hull)
-    for real, ct in (("float", ctypes.c_float), ("double", ctypes.c_double)):
-        lib = _build(tmp, "newton_solve", False, real)
-        lib.gst_newton_solve.argtypes = [P] * 11 + [I] * 9 + [ct, P]
-        libs[f"solve_{real}"] = lib
+    for real in ("float", "double"):
+        libs[f"solve_{real}"] = _solver_lib(host_tmp, real)
     return libs
+
+
+def _out_buffer(shape, dtype):
+    """A NaN-filled output of `shape` and the NaN-filled block of memory
+    just past it, which a kernel must leave alone."""
+    n = int(np.prod(shape))
+    buf = torch.full((n + 64,), float("nan"), dtype=dtype)
+    return buf[:n].view(shape), buf[n:]
 
 
 def _call(fn, *args):
@@ -153,58 +252,91 @@ def contact_state():
     return m, s, sl, d
 
 
-def test_hull_kernel_source_equals_plain(host_libs, contact_state):
+def _hull_inputs(contact_state, lanes=None):
     m, _, _, d = contact_state
     tb = hull_lanes.hull_tables(m)
-    gx = d.geom_xpos[:, tb.gidx]
-    gm = d.geom_xmat[:, tb.gidx]
+    gx = d.geom_xpos[:lanes, tb.gidx]
+    gm = d.geom_xmat[:lanes, tb.gidx]
     p_pack = torch.cat([gx[..., k].T for k in range(3)]).contiguous()
     R_pack = torch.cat([gm[..., j, k].T for j in range(3) for k in range(3)]).contiguous()
-    args = (p_pack, R_pack, tb.verts, tb.D, tb.counts, tb.i1, tb.i2)
+    return tb, (p_pack, R_pack, tb.verts, tb.D, tb.counts, tb.i1, tb.i2)
+
+
+def _hull_host(lib, tb, args, ND=None):
+    """Run the hull kernel source; returns (error code, output)."""
+    B = args[0].shape[1]
+    out, past = _out_buffer((4 * tb.P, B), torch.float32)
+    err = lib.gst_hull_sweep(
+        *[a.data_ptr() for a in args], out.data_ptr(), tb.G, ND or tb.D.shape[0], tb.P,
+        tb.verts.shape[1] // 3, tb.vtot, B, None)
+    assert torch.isnan(past).all(), "the kernel wrote past its output"
+    return err, out
+
+
+def test_hull_kernel_source_equals_plain(host_libs, contact_state):
+    tb, args = _hull_inputs(contact_state)
     ref = hull_lanes.sweep_h_plain(*args)
-    out = torch.full_like(ref, float("nan"))
-    _call(host_libs["hull"].gst_hull_sweep, *args, out, tb.G, tb.D.shape[0], tb.P,
-          tb.verts.shape[1] // 3, p_pack.shape[1])
+    err, out = _hull_host(host_libs["hull"], tb, args)
+    assert err == 0
     assert (ref[:tb.P] < 0).any(), "no penetrating hull pair in the test state"
     assert torch.equal(out, ref)
+
+
+def test_hull_kernel_source_equals_plain_in_a_partial_block(host_libs, contact_state):
+    """B = 29 is no multiple of the 8 envs of a block: the last block mixes
+    real envs with zero-filled staging lanes that must write nothing."""
+    tb, args = _hull_inputs(contact_state, lanes=29)
+    ref = hull_lanes.sweep_h_plain(*args)
+    err, out = _hull_host(host_libs["hull"], tb, args)
+    assert err == 0 and out.shape[1] == 29
+    assert torch.equal(out, ref)
+
+
+def test_hull_kernel_source_refuses_tables_too_large_for_a_block(host_libs,
+                                                                 contact_state):
+    """Tables of 8 envs that do not fit one block's shared memory make the
+    entry point return an error, and nothing is launched."""
+    tb, args = _hull_inputs(contact_state)
+    err, out = _hull_host(host_libs["hull"], tb, args, ND=4 * tb.D.shape[0])
+    assert err != 0 and torch.isnan(out).all()
 
 
 def _solve_host(lib, m, qM, a0, efc, warm, budgets, tol):
     inp = solver_lanes.pack_fused_inputs(m, qM, a0, efc, warm)
     NE, B = efc.aref.shape
     K = efc.con_mu.shape[0]
-    dt = a0.dtype
-    jar, djar = torch.empty(NE, B, dtype=dt), torch.empty(NE, B, dtype=dt)
-    out = torch.empty(2 * m.nv + 1, B, dtype=dt)
+    out, past = _out_buffer((2 * m.nv + 1, B), a0.dtype)
     _call(lib.gst_newton_solve, *[inp[k] for k in
-          ("J", "aref", "D", "aux", "us", "qM", "x0", "warm")], jar, djar, out,
+          ("J", "aref", "D", "aux", "us", "qM", "x0", "warm")], out,
           NE, efc.neq, efc.nf, efc.nl, K, B, *budgets, tol)
+    assert torch.isnan(past).all(), "the kernel wrote past its output"
     return out[:m.nv].T, out[m.nv:2 * m.nv].T, out[2 * m.nv]
 
 
-def _problem(contact_state, dtype):
+def _problem(contact_state, dtype, lanes=None):
+    """The solver's inputs for the state, cast to `dtype`; the first
+    `lanes` envs only when given (batch-last lanes, batch-first rows)."""
     m, s, sl, d = contact_state
     efc = constraint_lanes.make_efc_from_lanes(m, d, s, narrowphase.collide_batched_lanes(m, d))
     assert efc.con_active.any(0).all(), "some env has no active contact"
-    cast = lambda t: t.to(dtype)
+    cast = lambda t: t.to(dtype) if t.is_floating_point() else t
+    lane = lambda t: cast(t[..., :lanes]).contiguous()
     efc = dataclasses.replace(efc, **{
-        f.name: cast(getattr(efc, f.name)) for f in dataclasses.fields(efc)
-        if isinstance(getattr(efc, f.name), torch.Tensor)
-        and getattr(efc, f.name).is_floating_point()})
-    return m, cast(sl["qM_lanes"]), cast(sl["qacc_smooth"]), efc, cast(s.qacc_warmstart)
+        f.name: lane(getattr(efc, f.name)) for f in dataclasses.fields(efc)
+        if isinstance(getattr(efc, f.name), torch.Tensor)})
+    return (m, lane(sl["qM_lanes"]), cast(sl["qacc_smooth"][:lanes]), efc,
+            cast(s.qacc_warmstart[:lanes]))
 
 
-@pytest.mark.parametrize("budgets", [
-    (solver_lanes.NEWTON_ITERS, solver_lanes.LS_ITERS, solver_lanes.BRACKET_ITERS),
-    (3, 6, 5), (1, 6, 0)])
-def test_solver_kernel_source_equals_plain_in_float64(host_libs, contact_state, budgets,
-                                                      monkeypatch):
-    m, qM, a0, efc, warm = _problem(contact_state, torch.float64)
+def _share_equal_in_float64(lib, contact_state, budgets, monkeypatch, lanes=None):
+    """Share of lanes on which the float64 kernel source equals
+    `solve_plain` (qacc and qfrc to 1e-9, same iteration count)."""
+    m, qM, a0, efc, warm = _problem(contact_state, torch.float64, lanes)
     # the float32 budgets and tol (and two shorter ones) on both sides, so
     # that lanes stop with their budget spent as on the card
     tol = solver_lanes.budgets(m, torch.float32)[-1]
     monkeypatch.setattr(solver_lanes, "budgets", lambda m, dtype: (*budgets, tol))
-    qk, fk, nk = _solve_host(host_libs["solve_double"], m, qM, a0, efc, warm, budgets, tol)
+    qk, fk, nk = _solve_host(lib, m, qM, a0, efc, warm, budgets, tol)
     qp, fp, npl = solver_lanes.solve_plain(m, qM, a0, efc, warm)
     # the state must reach every zone of the elliptic cone
     jar = (efc.J * qp.T[:, None]).sum(0) - efc.aref
@@ -213,7 +345,57 @@ def test_solver_kernel_source_equals_plain_in_float64(host_libs, contact_state, 
     same = ((qk - qp).abs().amax(1) <= 1e-9 * qp.abs().amax().clamp(min=1.0)) & \
            ((fk - fp).abs().amax(1) <= 1e-9 * fp.abs().amax().clamp(min=1.0)) & \
            (nk == npl.double())
-    assert same.double().mean() >= 0.95, same.double().mean()
+    return float(same.double().mean())
+
+
+FULL_BUDGETS = (solver_lanes.NEWTON_ITERS, solver_lanes.LS_ITERS, solver_lanes.BRACKET_ITERS)
+
+
+@pytest.mark.parametrize("budgets", [FULL_BUDGETS, (3, 6, 5), (1, 6, 0)])
+def test_solver_kernel_source_equals_plain_in_float64(host_libs, contact_state, budgets,
+                                                      monkeypatch):
+    share = _share_equal_in_float64(host_libs["solve_double"], contact_state, budgets,
+                                    monkeypatch)
+    assert share >= 0.95, share
+
+
+def test_solver_kernel_source_in_a_partial_block_equals_full_blocks(host_libs,
+                                                                   contact_state):
+    """B = 29 is no multiple of the envs of a block: the warps of the last
+    block past B stage zeros and must neither solve nor write (a write past
+    B lands in the next output row).  Each env's result must not depend on
+    the batch, so the first 29 lanes equal those of the B = 32 run bit for
+    bit, in both builds.  (`solve_plain` is no reference here: its float64
+    results move with the batch width, as torch's vector loops round the
+    last lanes otherwise.)"""
+    for real, dtype in (("double", torch.float64), ("float", torch.float32)):
+        lib = host_libs[f"solve_{real}"]
+        *budgets, tol = solver_lanes.budgets(contact_state[0], torch.float32)
+        full = _solve_host(lib, *_problem(contact_state, dtype), budgets, tol)
+        part = _solve_host(lib, *_problem(contact_state, dtype, lanes=29), budgets, tol)
+        for f, p in zip(full, part):
+            assert p.shape[0] == 29 and torch.equal(f[:29], p)
+
+
+# Mutations of newton_solve.cu that the float64 check must catch: a
+# middle-zone term of the gradient and of the Hessian scaled by 1.1, and the
+# rows of lane 0 (contact 0, active in every env of the state) dropped from
+# the warp's gradient sum.
+MUTATIONS = {
+    "middle_gradient": ("+ kw * mu * uhat[j - 1] * usj[j];",
+                        "+ 1.1f * kw * mu * uhat[j - 1] * usj[j];"),
+    "middle_hessian": ("a[m] += kz * ai * al + wmu * (ss - pi * pl);",
+                       "a[m] += 1.1f * kz * ai * al + wmu * (ss - pi * pl);"),
+    "lane0_gradient": ("gcon[v] += t;", "if (lane != 0) gcon[v] += t;"),
+}
+
+
+@pytest.mark.parametrize("mutation", sorted(MUTATIONS))
+def test_solver_check_fails_for_mutated_source(host_tmp, contact_state, mutation,
+                                               monkeypatch):
+    lib = _solver_lib(host_tmp, "double", MUTATIONS[mutation], tag=f"_{mutation}")
+    share = _share_equal_in_float64(lib, contact_state, FULL_BUDGETS, monkeypatch)
+    assert share < 0.95, share
 
 
 def test_solver_kernel_source_runs_in_float32(host_libs, contact_state):
