@@ -17,9 +17,19 @@ Phases, each printed on its own line:
     with seeded random actions and one autoreset; assert finite results and
     that each kernel launched exactly 10 times per control step; time the
     env-steps per second after a warm-up;
- 5. print the build, ptxas, launch-shape and check lines again (so that
-    the end of the output holds them), the kernel table as one JSON line,
-    the card, then the result line {"ok": true, "device": {...}}.
+ 5. train: Trainer.train on so100_touch_cube at 128 envs, K = 32, utd 8,
+    full-width SAC (2 warm-up and 8 learning env-batch steps); assert
+    finite metrics, the buffer's size, 10 launches of each kernel per
+    control step and ncon within K; check and time both kernels on the
+    trainer env's state at touchdown (K = 32); save, restore (bit-equal)
+    and take one resumed step; print the training env-steps/s and the time
+    of one SAC update (CUDA events);
+ 6. print the build, ptxas, launch-shape and check lines again (so that
+    the end of the output holds them), the kernel table as one JSON line
+    (per kernel: the K = 16 row, the statistic its check bounds with that
+    bound, and the training phase's launches, check and times under
+    "train_k32"), the card, then the result line
+    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -45,6 +55,15 @@ TIMED_STEPS = 10      # control steps timed for env-steps/s
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12   # float32 outside the tensor cores
 EPS32 = 1.1920929e-07        # float32 machine epsilon
+HULL_REL_BOUND = 1e-6        # hull tables: max |kernel - plain| / max(|plain|, 1)
+# the training phase: the JAX learning artifact's configuration
+# (so100_touch_cube, 128 envs, utd 8, K = 32), full-width SAC
+TRAIN_ENVS = 128
+TRAIN_K = 32
+TRAIN_UTD = 8
+TRAIN_WARMUP = 2      # env-batch steps of random actions (learning_starts)
+TRAIN_STEPS = 10      # env-batch steps in all: 2 warm-up, 8 learning
+UPDATE_REPS = 20      # SAC updates timed with CUDA events
 
 
 RECAP = []   # the build, launch-shape and check lines, printed again at the end
@@ -122,9 +141,9 @@ def check_hull(env, es, timed):
     act = res_p[3]
     err = (out_k - out_p).abs()
     max_err = float(err.max())
+    rel_err = float((err / out_p.abs().clamp(min=1.0)).max())
     assert torch.equal(res_k[3], act), "hull: active masks differ"
-    assert float((err / out_p.abs().clamp(min=1.0)).max()) <= 1e-6, (
-        f"hull: depth/normal differ by {max_err}")
+    assert rel_err <= HULL_REL_BOUND, f"hull: depth/normal differ by {max_err}"
     pos_err = max(float((res_k[0][j][act] - res_p[0][j][act]).abs().max())
                   if act.any() else 0.0 for j in range(3))
     assert pos_err <= 1e-5, f"hull: witness positions differ by {pos_err}"
@@ -154,6 +173,8 @@ def check_hull(env, es, timed):
         replaces="gym_so100_tpu/ops/collision/hull_lanes.py:221",
         max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
         **_bound(nbytes, ops), library_ms=None,
+        check_stat="max |kernel - plain| / max(|plain|, 1) over depth and normal",
+        check_value=rel_err, check_bound=HULL_REL_BOUND,
     )
 
 
@@ -276,6 +297,8 @@ def check_solver(env, es, timed, floor_samples=0):
         replaces="gym_so100_tpu/ops/solver_lanes.py:635",
         max_abs_err=float((qk - ref[0]).abs().max()), ms=ms, plain_ms=plain_ms,
         **_bound(nbytes, ops), library_ms=None,
+        check_stat="max |kernel qacc - plain qacc| / max(rms(plain qacc), 1)",
+        check_value=st["qmax"], check_bound=bounds["qmax"],
     )
 
 
@@ -355,6 +378,125 @@ def stage_times(env, es):
     total = sum(times.values())
     log("substep stages (host clock, ms): " + ", ".join(
         f"{k} {v:.2f}" for k, v in times.items()) + f"; total {total:.2f}")
+
+
+def run_training(card):
+    """The training phase: Trainer.train on the K = 32 scene at 128 envs
+    (warm-up, then learning with utd updates per step), counted; both
+    kernels against their plain versions on the trainer env's state at
+    touchdown; save, restore (bit-equal) and one resumed step; the time of
+    one SAC update.  Returns {kernel name: launches, ms, ...} of the phase."""
+    import copy
+    import dataclasses
+    import math
+    import tempfile
+
+    import torch
+
+    from gym_so100_tpu_torch.agents.sac import SACConfig
+    from gym_so100_tpu_torch.agents.train import TrainConfig, Trainer
+    from gym_so100_tpu_torch.ops import solver_lanes
+    from gym_so100_tpu_torch.ops.collision import hull_lanes
+
+    tcfg = TrainConfig(task=TASK, num_envs=TRAIN_ENVS, total_steps=TRAIN_STEPS * TRAIN_ENVS,
+                       learning_starts=TRAIN_WARMUP * TRAIN_ENVS, utd=TRAIN_UTD,
+                       log_every=1, max_contacts=TRAIN_K)
+    trainer = Trainer(None, tcfg, SACConfig(), device="cuda")
+    assert trainer.env.m.max_contacts == TRAIN_K
+    lines, states, stamps = [], [], []
+
+    def progress(line):
+        # a log line reads the device, so every step has ended by now
+        stamps.append(time.perf_counter())
+        lines.append(line)
+        states.append(copy.deepcopy(trainer.env_state))   # device copies only
+
+    hull_lanes.sweep_h.launches = 0
+    solver_lanes.solve_fused.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = trainer.train(seed=SEED, progress=progress)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"hull_sweep": hull_lanes.sweep_h.launches,
+                "newton_solve": solver_lanes.solve_fused.launches}
+    log(f"training: {TRAIN_STEPS} env-batch steps x {TRAIN_ENVS} envs ({TRAIN_WARMUP} "
+        f"warm-up), utd {TRAIN_UTD}, K {TRAIN_K}: {st.step} SAC updates, buffer "
+        f"{st.buffer.size}, launches {launches}, last line {json.dumps(lines[-1])}",
+        recap=True)
+    for name, n in launches.items():
+        assert n == 10 * TRAIN_STEPS, f"training: {name} {n} launches, expected {10 * TRAIN_STEPS}"
+    assert [ln["env_steps"] for ln in lines] == [
+        (i + 1) * TRAIN_ENVS for i in range(TRAIN_STEPS)]
+    for ln in lines:
+        assert all(math.isfinite(v) for v in ln.values()), f"training: not finite: {ln}"
+    metrics = ("critic_loss", "actor_loss", "alpha", "entropy")
+    assert all(set(metrics) <= set(ln) for ln in lines[TRAIN_WARMUP:]), lines
+    assert st.step == (TRAIN_STEPS - TRAIN_WARMUP) * TRAIN_UTD
+    assert st.buffer.size == TRAIN_STEPS * TRAIN_ENVS, st.buffer.size
+    assert lines[-1]["ncon_peak"] <= TRAIN_K, lines[-1]
+    step_ms = [(b - a) * 1e3 for a, b in zip([t0] + stamps[:-1], stamps)]
+    learn_ms = step_ms[TRAIN_WARMUP + 1:]
+    log(f"training throughput: {lines[-1]['sps']} env-steps/s by the trainer's own "
+        f"clock over its {TRAIN_STEPS} steps, {TRAIN_STEPS * TRAIN_ENVS / dt:.1f} with "
+        f"its set-up; learning env-batch step (policy step + {TRAIN_UTD} updates) "
+        f"{sum(learn_ms) / len(learn_ms):.1f} ms, mean of steps {TRAIN_WARMUP + 2}-"
+        f"{TRAIN_STEPS}; all steps (ms, the first with set-up): "
+        f"{', '.join(f'{x:.1f}' for x in step_ms)}; on {card}", recap=True)
+
+    # both kernels at K = 32 on the trainer env's first state where at
+    # least half the envs have a contact
+    env = trainer.env
+    at = next((i for i, es in enumerate(states)
+               if solver_problem(env, es)[2].con_active.any(0).float().mean() >= 0.5), None)
+    assert at is not None, "training: no step with contacts in half the envs"
+    log(f"training touchdown (K {TRAIN_K}, {TRAIN_ENVS} envs): after env-batch step "
+        f"{at + 1}", recap=True)
+    rows = {"hull_sweep": check_hull(env, states[at], timed=True),
+            "newton_solve": check_solver(env, states[at], timed=True)}
+
+    # save, restore bit-equal, one resumed step
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_",
+                                     dir=Path(__file__).resolve().parent) as tmp:
+        path = trainer.save(st, tmp, st.batch_steps * TRAIN_ENVS)
+        st2 = trainer.restore(path)
+    saved, restored = trainer.sac.state_dict(st), trainer.sac.state_dict(st2)
+    for part in ("actor", "critic", "target_critic", "buffer", "normalizer"):
+        for k, v in saved[part].items():
+            w = restored[part][k]
+            same = torch.equal(v, w) if isinstance(v, torch.Tensor) else v == w
+            assert same, f"restore: {part}.{k} differs"
+    assert torch.equal(saved["log_alpha"], restored["log_alpha"])
+    assert (st2.step, st2.batch_steps) == (st.step, st.batch_steps)
+    resumed = Trainer(env.m, dataclasses.replace(
+        tcfg, total_steps=(TRAIN_STEPS + 1) * TRAIN_ENVS), SACConfig(), device="cuda")
+    lines2 = []
+    st3 = resumed.train(seed=SEED, progress=lines2.append, init_state=st2)
+    assert [ln["env_steps"] for ln in lines2] == [(TRAIN_STEPS + 1) * TRAIN_ENVS], lines2
+    assert st3.step == st.step + TRAIN_UTD and st3.batch_steps == TRAIN_STEPS + 1
+    log(f"save/restore: parameters, buffer and normalizer bit-equal; resumed at "
+        f"env step {TRAIN_STEPS * TRAIN_ENVS}, one more learning step -> "
+        f"{json.dumps(lines2[-1])}", recap=True)
+
+    # one SAC update (full width, batch 256), CUDA events over the updates
+    # alone on batches sampled beforehand
+    sac = trainer.sac
+    batches = [st3.buffer.sample(sac.cfg.batch_size, st3.generator)
+               for _ in range(UPDATE_REPS + 1)]
+    sac.update(st3, batches[0])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for b in batches[1:]:
+        sac.update(st3, b)
+    end.record()
+    torch.cuda.synchronize()
+    update_ms = start.elapsed_time(end) / UPDATE_REPS
+    log(f"SAC update: {update_ms:.4f} ms per update (features {sac.cfg.features}, "
+        f"batch {sac.cfg.batch_size}, CUDA events over {UPDATE_REPS}) on {card}",
+        recap=True)
+    return {name: dict(launches=launches[name], **rows[name]) for name in rows}
 
 
 def main():
@@ -453,13 +595,21 @@ def main():
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
             f"{row['launches']} launches, on {card}")
 
-    # 5. results
+    # 5. the training path, counted
+    train = run_training(card)
+
+    # 6. results
     for line in RECAP:
         log(f"recap: {line}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}),
-          flush=True)
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "check_stat",
+            "check_value", "check_bound")
+    train_keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                  "check_value", "check_bound")
+    print(json.dumps({"kernels": [
+        {**{k: row[k] for k in keys},
+         "train_k32": {k: train[row["name"]][k] for k in train_keys}}
+        for row in rows]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -1,0 +1,417 @@
+"""SAC learner, state observations: networks, replay buffer and updates.
+
+The port of `gym_so100_tpu/agents/sac.py` for flat state obs: twin Q
+critics, a tanh-squashed Gaussian actor, automatic entropy tuning against
+`target_entropy`, Polyak target updates and running obs normalization
+(clip 10).  The replay buffer, the normalizer and the networks live on one
+device; every random draw comes from the state's own `torch.Generator`.
+
+The state is mutable: `update`, `train_step` and `ingest` change the
+`SACState` they are given in place and return it.  Layouts and init follow
+the Flax modules of the JAX package, so `agents/convert.py` carries a JAX
+state across: a torch weight is the transpose of a Flax kernel, kernels
+start LeCun-normal (truncated at two standard deviations), biases at zero.
+Adam runs with optax's defaults (betas 0.9/0.999, eps 1e-8).
+"""
+
+from __future__ import annotations
+
+import copy
+import math
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from ..device import resolve_device
+
+LOG_2PI = math.log(2 * math.pi)
+_PIXELS = ("pixel observations need the NatureCNN encoder and the rasterizer, "
+           "which are not ported yet (ROADMAP.md, queue A3: pixels)")
+
+
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator):
+    """Flax's default Dense kernel init on a torch (out, in) weight: a normal
+    of variance 1/fan_in truncated to two standard deviations (drawn by
+    inverting the normal CDF of a uniform, as jax.random.truncated_normal
+    does)."""
+    std = math.sqrt(1.0 / weight.shape[1]) / 0.87962566103423978
+    lo = math.erf(-2.0 / math.sqrt(2.0))
+    u = torch.empty_like(weight).uniform_(lo, -lo, generator=generator)
+    with torch.no_grad():
+        weight.copy_(torch.clamp(torch.erfinv(u) * math.sqrt(2.0), -2.0, 2.0) * std)
+
+
+def _linear(n_in, n_out, device, dtype):
+    # no default init: that would draw from torch's global generator
+    return torch.nn.utils.skip_init(nn.Linear, n_in, n_out, device=device or "cpu",
+                                    dtype=dtype)
+
+
+class MLP(nn.Module):
+    """Hidden layers of `features` with ReLU, then a linear output."""
+
+    def __init__(self, n_in, features, n_out, device=None, dtype=None):
+        super().__init__()
+        dims = (n_in, *features)
+        self.hidden = nn.ModuleList(
+            _linear(a, b, device, dtype) for a, b in zip(dims[:-1], dims[1:]))
+        self.out = _linear(dims[-1], n_out, device, dtype)
+
+    def layers(self):
+        return [*self.hidden, self.out]
+
+    def forward(self, x):
+        for lin in self.hidden:
+            x = torch.relu(lin(x))
+        return self.out(x)
+
+
+class Actor(nn.Module):
+    """obs -> (mean, log_std), the head split [mean | log_std] and log_std
+    clipped to [log_std_min, log_std_max]."""
+
+    def __init__(self, obs_dim, act_dim, features=(256, 256), log_std_min=-20.0,
+                 log_std_max=2.0, pixels=False, device=None, dtype=None):
+        super().__init__()
+        if pixels:
+            raise NotImplementedError(_PIXELS)
+        self.act_dim = act_dim
+        self.log_std_min, self.log_std_max = log_std_min, log_std_max
+        self.mlp = MLP(obs_dim, features, 2 * act_dim, device, dtype)
+
+    def mlps(self):
+        return [self.mlp]
+
+    def forward(self, obs):
+        mean, log_std = self.mlp(obs).split(self.act_dim, dim=-1)
+        return mean, torch.clamp(log_std, self.log_std_min, self.log_std_max)
+
+
+class Critic(nn.Module):
+    """Twin Q: (obs, act) -> (q1, q2), each (batch,)."""
+
+    def __init__(self, obs_dim, act_dim, features=(256, 256), pixels=False,
+                 device=None, dtype=None):
+        super().__init__()
+        if pixels:
+            raise NotImplementedError(_PIXELS)
+        self.q1 = MLP(obs_dim + act_dim, features, 1, device, dtype)
+        self.q2 = MLP(obs_dim + act_dim, features, 1, device, dtype)
+
+    def mlps(self):
+        return [self.q1, self.q2]
+
+    def forward(self, obs, act):
+        x = torch.cat([obs, act], dim=-1)
+        return self.q1(x)[..., 0], self.q2(x)[..., 0]
+
+
+def init_flax_(module: nn.Module, generator: torch.Generator):
+    """Initialise every layer of an Actor or Critic as Flax's Dense does."""
+    for mlp in module.mlps():
+        for lin in mlp.layers():
+            lecun_normal_(lin.weight, generator)
+            with torch.no_grad():
+                lin.bias.zero_()
+
+
+def sample_action(actor: Actor, obs, eps):
+    """tanh-squashed Gaussian sample and its log-prob, from the standard
+    normal draw `eps` (shaped like the action)."""
+    mean, log_std = actor(obs)
+    act = torch.tanh(mean + torch.exp(log_std) * eps)
+    logp = (
+        -0.5 * (eps**2 + 2 * log_std + LOG_2PI)
+        - torch.log(torch.clamp(1 - act**2, min=1e-6))
+    ).sum(-1)
+    return act, logp
+
+
+def det_action(actor: Actor, obs):
+    mean, _ = actor(obs)
+    return torch.tanh(mean)
+
+
+class Normalizer:
+    """Running obs mean/var (population variance, count starting at 1e-4),
+    applied as clip((obs - mean) / sqrt(var + 1e-8), +-10)."""
+
+    def __init__(self, mean, var, count):
+        self.mean, self.var, self.count = mean, var, count
+
+    @staticmethod
+    def create(dim, dtype=torch.float32, device="cpu"):
+        return Normalizer(
+            mean=torch.zeros(dim, dtype=dtype, device=device),
+            var=torch.ones(dim, dtype=dtype, device=device),
+            count=torch.tensor(1e-4, dtype=dtype, device=device),
+        )
+
+    def update(self, batch):
+        """Merge the statistics of `batch` (n, dim) in place."""
+        bmean = batch.mean(0)
+        bvar = batch.var(0, correction=0)
+        bcount = batch.shape[0]
+        delta = bmean - self.mean
+        tot = self.count + bcount
+        mean = self.mean + delta * bcount / tot
+        m2 = self.var * self.count + bvar * bcount + delta**2 * self.count * bcount / tot
+        self.mean, self.var, self.count = mean, m2 / tot, tot
+
+    def norm(self, obs, clip=10.0):
+        return torch.clamp((obs - self.mean) / torch.sqrt(self.var + 1e-8), -clip, clip)
+
+    def tensors(self):
+        return {"mean": self.mean, "var": self.var, "count": self.count}
+
+
+class ReplayBuffer:
+    """Fixed-capacity ring buffer of transitions on the device.  `ptr` and
+    `size` are host integers (they depend only on batch sizes), so writing
+    and sampling never wait for the device."""
+
+    FIELDS = ("obs", "act", "rew", "next_obs", "done")
+
+    def __init__(self, capacity, obs_dim, act_dim, dtype=torch.float32, device="cpu"):
+        z = lambda *s, dt=dtype: torch.zeros(*s, dtype=dt, device=device)
+        self.obs = z(capacity, obs_dim)
+        self.act = z(capacity, act_dim)
+        self.rew = z(capacity)
+        self.next_obs = z(capacity, obs_dim)
+        self.done = z(capacity, dt=torch.bool)     # terminal (not truncation)
+        self.ptr = 0
+        self.size = 0
+
+    @property
+    def capacity(self):
+        return self.act.shape[0]
+
+    def add_batch(self, obs, act, rew, next_obs, done):
+        """Write a batch of B transitions at the ring pointer."""
+        B, cap = act.shape[0], self.capacity
+        idx = (self.ptr + torch.arange(B, device=self.act.device)) % cap
+        for name, val in zip(self.FIELDS, (obs, act, rew, next_obs, done)):
+            buf = getattr(self, name)
+            buf[idx] = val.to(buf.dtype)
+        self.ptr = (self.ptr + B) % cap
+        self.size = min(self.size + B, cap)
+
+    def take(self, idx):
+        return {name: getattr(self, name)[idx] for name in self.FIELDS}
+
+    def sample(self, batch_size, generator):
+        idx = torch.randint(0, max(self.size, 1), (batch_size,), generator=generator,
+                            device=self.act.device)
+        return self.take(idx)
+
+
+@dataclass(frozen=True)
+class SACConfig:
+    obs_dim: int = 15
+    act_dim: int = 6
+    lr: float = 1e-4
+    buffer_size: int = 50_000
+    batch_size: int = 256
+    gamma: float = 0.99
+    tau: float = 0.005
+    target_entropy: float = -2.0
+    features: tuple = (256, 256)
+    # (H, W) of pixel observations; only the empty tuple (state obs) is
+    # ported
+    pixels: tuple = ()
+
+
+@dataclass
+class SACState:
+    actor: Actor
+    critic: Critic
+    target_critic: Critic
+    log_alpha: torch.Tensor        # 0-dim leaf, requires grad
+    actor_opt: torch.optim.Adam
+    critic_opt: torch.optim.Adam
+    alpha_opt: torch.optim.Adam
+    buffer: ReplayBuffer
+    normalizer: Normalizer
+    generator: torch.Generator
+    step: int = 0                  # gradient updates
+    batch_steps: int = 0           # env-batch steps the trainer has taken
+    # stage hyperparameters (the trainer's curriculum sets them)
+    target_entropy: float = -2.0
+    lr_scale: float = 1.0
+
+
+class SAC:
+    """SAC bound to a config, a device and a float dtype; the learning state
+    lives in an SACState."""
+
+    def __init__(self, cfg: SACConfig, device="cuda", dtype=torch.float32):
+        if cfg.pixels:
+            raise NotImplementedError(_PIXELS)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = dtype
+
+    def make_actor(self) -> Actor:
+        c = self.cfg
+        return Actor(c.obs_dim, c.act_dim, c.features, device=self.device, dtype=self.dtype)
+
+    def make_critic(self) -> Critic:
+        c = self.cfg
+        return Critic(c.obs_dim, c.act_dim, c.features, device=self.device, dtype=self.dtype)
+
+    def init(self, seed=0) -> SACState:
+        """Fresh state: Flax-style init from a generator seeded with `seed`,
+        which then drives every later draw of the state."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        actor, critic = self.make_actor(), self.make_critic()
+        init_flax_(actor, gen)
+        init_flax_(critic, gen)
+        return self.new_state(actor, critic, generator=gen)
+
+    def new_state(self, actor, critic, target_critic=None, log_alpha=0.0,
+                  normalizer=None, generator=None, seed=0) -> SACState:
+        """State around given networks: fresh optimizers and an empty buffer;
+        the target critic defaults to a copy of `critic`."""
+        cfg = self.cfg
+        target = copy.deepcopy(critic if target_critic is None else target_critic)
+        target.requires_grad_(False)
+        log_alpha = torch.tensor(float(log_alpha), dtype=self.dtype, device=self.device,
+                                 requires_grad=True)
+        adam = lambda params: torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999),
+                                               eps=1e-8)
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(seed)
+        return SACState(
+            actor=actor, critic=critic, target_critic=target, log_alpha=log_alpha,
+            actor_opt=adam(actor.parameters()), critic_opt=adam(critic.parameters()),
+            alpha_opt=adam([log_alpha]),
+            buffer=ReplayBuffer(cfg.buffer_size, cfg.obs_dim, cfg.act_dim, self.dtype,
+                                self.device),
+            normalizer=normalizer or Normalizer.create(cfg.obs_dim, self.dtype, self.device),
+            generator=generator, target_entropy=cfg.target_entropy,
+        )
+
+    def _noise(self, st: SACState, n):
+        return torch.randn(n, self.cfg.act_dim, generator=st.generator,
+                           device=self.device, dtype=self.dtype)
+
+    # -- acting --------------------------------------------------------------
+
+    @torch.no_grad()
+    def act(self, st: SACState, obs, deterministic=False):
+        """Actions for `obs` (B, obs_dim); stochastic draws come from the
+        state's generator."""
+        nobs = st.normalizer.norm(obs.to(self.dtype))
+        if deterministic:
+            return det_action(st.actor, nobs)
+        return sample_action(st.actor, nobs, self._noise(st, obs.shape[0]))[0]
+
+    # -- learning ------------------------------------------------------------
+
+    def update(self, st: SACState, batch, noise=None):
+        """One gradient step on `batch` (dict of obs, act, rew, next_obs,
+        done): critic, then actor against the updated critic, then alpha,
+        then the Polyak target update.  `noise` = (eps_next, eps_actor), the
+        two standard normal draws (batch, act_dim) of the target and actor
+        samples; drawn from the state's generator when not given.  Returns
+        (st, metrics), the metrics as 0-dim device tensors."""
+        cfg = self.cfg
+        eps_next, eps_actor = noise if noise is not None else (
+            self._noise(st, batch["act"].shape[0]) for _ in range(2))
+        for opt in (st.actor_opt, st.critic_opt, st.alpha_opt):
+            for group in opt.param_groups:
+                group["lr"] = cfg.lr * st.lr_scale
+        nobs = st.normalizer.norm(batch["obs"])
+        alpha = st.log_alpha.detach().exp()
+
+        with torch.no_grad():
+            nnext = st.normalizer.norm(batch["next_obs"])
+            next_act, next_logp = sample_action(st.actor, nnext, eps_next)
+            tq1, tq2 = st.target_critic(nnext, next_act)
+            tq = torch.minimum(tq1, tq2) - alpha * next_logp
+            target = batch["rew"] + cfg.gamma * (~batch["done"]).to(tq.dtype) * tq
+
+        q1, q2 = st.critic(nobs, batch["act"])
+        closs = ((q1 - target) ** 2 + (q2 - target) ** 2).mean()
+        st.critic_opt.zero_grad(set_to_none=True)
+        closs.backward()
+        st.critic_opt.step()
+
+        # the actor's gradient only: the critic's .grad stays as its own step
+        # left it
+        act, logp = sample_action(st.actor, nobs, eps_actor)
+        q1, q2 = st.critic(nobs, act)
+        aloss = (alpha * logp - torch.minimum(q1, q2)).mean()
+        params = list(st.actor.parameters())
+        for p, g in zip(params, torch.autograd.grad(aloss, params)):
+            p.grad = g
+        st.actor_opt.step()
+
+        logp = logp.detach()
+        lloss = -(st.log_alpha.exp() * (logp + st.target_entropy)).mean()
+        st.alpha_opt.zero_grad(set_to_none=True)
+        lloss.backward()
+        st.alpha_opt.step()
+
+        with torch.no_grad():
+            for t, p in zip(st.target_critic.parameters(), st.critic.parameters()):
+                t.copy_((1 - cfg.tau) * t + cfg.tau * p)
+        st.step += 1
+        metrics = dict(critic_loss=closs.detach(), actor_loss=aloss.detach(),
+                       alpha=st.log_alpha.detach().exp(), entropy=-logp.mean())
+        return st, metrics
+
+    def ingest(self, st: SACState, obs, act, rew, next_obs, done):
+        """Write a batch of env transitions to the buffer and merge its obs
+        into the normalizer."""
+        st.buffer.add_batch(obs, act, rew, next_obs, done)
+        st.normalizer.update(obs.to(self.dtype))
+        return st
+
+    def train_step(self, st: SACState, obs, act, rew, next_obs, done, noise=None):
+        """Ingest a batch of env transitions and take one gradient update on
+        a batch sampled from the buffer."""
+        self.ingest(st, obs, act, rew, next_obs, done)
+        batch = st.buffer.sample(self.cfg.batch_size, st.generator)
+        return self.update(st, batch, noise)
+
+    # -- checkpoints ---------------------------------------------------------
+
+    def state_dict(self, st: SACState) -> dict:
+        """Everything of `st` as tensors, ints and dicts (torch.save-able)."""
+        buf = st.buffer
+        return dict(
+            actor=st.actor.state_dict(), critic=st.critic.state_dict(),
+            target_critic=st.target_critic.state_dict(),
+            log_alpha=st.log_alpha.detach(),
+            actor_opt=st.actor_opt.state_dict(), critic_opt=st.critic_opt.state_dict(),
+            alpha_opt=st.alpha_opt.state_dict(),
+            buffer={**{n: getattr(buf, n) for n in buf.FIELDS},
+                    "ptr": buf.ptr, "size": buf.size},
+            normalizer=st.normalizer.tensors(),
+            generator=st.generator.get_state(),
+            step=st.step, batch_steps=st.batch_steps,
+            target_entropy=st.target_entropy, lr_scale=st.lr_scale,
+        )
+
+    def load_state_dict(self, d: dict) -> SACState:
+        """The SACState that `state_dict` saved, on this SAC's device."""
+        st = self.init()
+        st.actor.load_state_dict(d["actor"])
+        st.critic.load_state_dict(d["critic"])
+        st.target_critic.load_state_dict(d["target_critic"])
+        with torch.no_grad():
+            st.log_alpha.copy_(d["log_alpha"])
+        st.actor_opt.load_state_dict(d["actor_opt"])
+        st.critic_opt.load_state_dict(d["critic_opt"])
+        st.alpha_opt.load_state_dict(d["alpha_opt"])
+        for n in ReplayBuffer.FIELDS:
+            getattr(st.buffer, n).copy_(d["buffer"][n])
+        st.buffer.ptr, st.buffer.size = int(d["buffer"]["ptr"]), int(d["buffer"]["size"])
+        st.normalizer = Normalizer(**{k: v.to(self.device)
+                                      for k, v in d["normalizer"].items()})
+        st.generator.set_state(d["generator"].cpu())
+        st.step, st.batch_steps = int(d["step"]), int(d["batch_steps"])
+        st.target_entropy, st.lr_scale = float(d["target_entropy"]), float(d["lr_scale"])
+        return st

@@ -273,10 +273,12 @@ def solve_fused(m: Model, qM, a0, efc: EfcLanes, warmstart=None):
     """Launch the whole-solve CUDA kernel (float32, nv = 12).  Same
     arguments and results as `solve_plain`.
 
-    The kernel runs one warp per env, eight envs per block, and keeps every
-    intermediate (jar, djar, the Hessian and its factor) in shared memory,
-    so the only device memory it touches is the packed inputs and the
-    (2*nv + 1, B) output allocated here."""
+    The kernel runs one warp per env, four envs per 128-thread block.  It
+    stages each env's inputs into shared memory once and keeps every
+    intermediate there (jar, djar, row weights, x, the direction) or in
+    registers (the Hessian's entries and their Cholesky factor, owned by
+    the lanes that assembled them), so the only device memory it touches
+    is the packed inputs and the (2*nv + 1, B) output allocated here."""
     from .. import kernels
 
     B, nv = a0.shape

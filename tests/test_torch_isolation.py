@@ -8,8 +8,9 @@ port there.  Two guards:
   for `import`/`from` statements (and import_module/__import__ calls with a
   literal name) of a forbidden package;
 * a subprocess whose import system refuses those packages, which imports
-  chip_smoke, builds the Model on the CPU and takes two BatchedEnv control
-  steps through the plain PyTorch paths.
+  chip_smoke, builds the Model on the CPU, takes two BatchedEnv control
+  steps through the plain PyTorch paths and one SAC update, and imports
+  every agents module and the training script.
 """
 
 import ast
@@ -106,6 +107,14 @@ g = torch.Generator().manual_seed(0)
 for _ in range(2):
     es, obs, reward, term, trunc, info = env.step(es, torch.rand(8, 6, generator=g) * 2 - 1)
     assert bool(torch.isfinite(obs).all()) and obs.shape == (8, 15)
+from gym_so100_tpu_torch.agents import bc, convert, metrics, sac, train
+from gym_so100_tpu_torch.scripts import train_sac
+
+s = sac.SAC(sac.SACConfig(batch_size=8, buffer_size=32), device="cpu")
+st = s.init(seed=0)
+st, m = s.train_step(st, obs, torch.rand(8, 6, generator=g) * 2 - 1, reward,
+                     info["final_obs"], term)
+assert st.step == 1 and all(bool(torch.isfinite(v)) for v in m.values())
 loaded = sorted(n for n in sys.modules if n.split(".")[0] in FORBIDDEN)
 assert not loaded, loaded
 print("ISOLATED OK")
