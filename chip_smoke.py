@@ -24,11 +24,25 @@ Phases, each printed on its own line:
     trainer env's state at touchdown (K = 32); save, restore (bit-equal)
     and take one resumed step; print the training env-steps/s and the time
     of one SAC update (CUDA events);
- 6. print the build, ptxas, launch-shape and check lines again (so that
+ 6. pixels, at the JAX pixel learning artifact's setting (so100_touch_cube,
+    48x64 top-camera frames, 128 envs, K = 32): (a) BatchedEnv in
+    "pixels_agent_pos" mode, counted: reset, then control steps with seeded
+    random actions, half the envs auto-resetting on the first; assert obs
+    shapes and dtypes, finite agent_pos, terminal frames that differ from
+    the reset frames at the done envs, 10 launches of each kernel per
+    control step; hold the card's frames of 16 envs against the same
+    renderer on the CPU (at most 0.2% of a frame's pixels more than 1 apart)
+    and the red cube's centroid against its projection (within 4 px); time
+    a batched render (CUDA events) and a pixel control step; (b) pixel
+    training as in 5 (2 warm-up and 8 learning env-batch steps, utd 8,
+    full-width SAC, buffer 50,000 with uint8 frames), counted, with save,
+    restore (bit-equal) and a resumed step; time one pixel SAC update;
+ 7. print the build, ptxas, launch-shape and check lines again (so that
     the end of the output holds them), the kernel table as one JSON line
     (per kernel: the K = 16 row, the statistic its check bounds with that
-    bound, and the training phase's launches, check and times under
-    "train_k32"), the card, then the result line
+    bound, the training phase's launches, check and times under
+    "train_k32", and the launches of the pixel env and pixel training
+    under "pixel_env" and "train_pixels"), the card, then the result line
     {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -64,6 +78,13 @@ TRAIN_UTD = 8
 TRAIN_WARMUP = 2      # env-batch steps of random actions (learning_starts)
 TRAIN_STEPS = 10      # env-batch steps in all: 2 warm-up, 8 learning
 UPDATE_REPS = 20      # SAC updates timed with CUDA events
+# the pixel phase: the JAX pixel learning artifact's configuration
+# (so100_touch_cube, pixels 48x64, 128 envs, utd 8, K = 32)
+PIX_H, PIX_W = 48, 64
+PIX_STEPS = 3         # control steps of the counted pixel-env run
+PIX_CPU_ENVS = 16     # envs whose frames are rendered again on the CPU
+PIX_FRAME_TOL = 0.002     # share of a frame's pixels allowed > 1 LSB off the CPU's
+RENDER_REPS = 10      # batched renders timed with CUDA events
 
 
 RECAP = []   # the build, launch-shape and check lines, printed again at the end
@@ -380,28 +401,22 @@ def stage_times(env, es):
         f"{k} {v:.2f}" for k, v in times.items()) + f"; total {total:.2f}")
 
 
-def run_training(card):
-    """The training phase: Trainer.train on the K = 32 scene at 128 envs
-    (warm-up, then learning with utd updates per step), counted; both
-    kernels against their plain versions on the trainer env's state at
-    touchdown; save, restore (bit-equal) and one resumed step; the time of
-    one SAC update.  Returns {kernel name: launches, ms, ...} of the phase."""
+def train_counted(tcfg, sac_cfg, label, keep_states=False):
+    """Trainer.train from scratch with both kernels' launch counts set to 0
+    just before and read just after; checks the log lines, the update and
+    buffer counts, 10 launches of each kernel per control step and ncon
+    within K, and prints the throughput.  Returns (trainer, st, launches,
+    env states after each step if `keep_states`)."""
     import copy
-    import dataclasses
     import math
-    import tempfile
 
     import torch
 
-    from gym_so100_tpu_torch.agents.sac import SACConfig
-    from gym_so100_tpu_torch.agents.train import TrainConfig, Trainer
+    from gym_so100_tpu_torch.agents.train import Trainer
     from gym_so100_tpu_torch.ops import solver_lanes
     from gym_so100_tpu_torch.ops.collision import hull_lanes
 
-    tcfg = TrainConfig(task=TASK, num_envs=TRAIN_ENVS, total_steps=TRAIN_STEPS * TRAIN_ENVS,
-                       learning_starts=TRAIN_WARMUP * TRAIN_ENVS, utd=TRAIN_UTD,
-                       log_every=1, max_contacts=TRAIN_K)
-    trainer = Trainer(None, tcfg, SACConfig(), device="cuda")
+    trainer = Trainer(None, tcfg, sac_cfg, device="cuda")
     assert trainer.env.m.max_contacts == TRAIN_K
     lines, states, stamps = [], [], []
 
@@ -409,7 +424,8 @@ def run_training(card):
         # a log line reads the device, so every step has ended by now
         stamps.append(time.perf_counter())
         lines.append(line)
-        states.append(copy.deepcopy(trainer.env_state))   # device copies only
+        if keep_states:
+            states.append(copy.deepcopy(trainer.env_state))   # device copies only
 
     hull_lanes.sweep_h.launches = 0
     solver_lanes.solve_fused.launches = 0
@@ -420,16 +436,16 @@ def run_training(card):
     dt = time.perf_counter() - t0
     launches = {"hull_sweep": hull_lanes.sweep_h.launches,
                 "newton_solve": solver_lanes.solve_fused.launches}
-    log(f"training: {TRAIN_STEPS} env-batch steps x {TRAIN_ENVS} envs ({TRAIN_WARMUP} "
+    log(f"{label}: {TRAIN_STEPS} env-batch steps x {TRAIN_ENVS} envs ({TRAIN_WARMUP} "
         f"warm-up), utd {TRAIN_UTD}, K {TRAIN_K}: {st.step} SAC updates, buffer "
         f"{st.buffer.size}, launches {launches}, last line {json.dumps(lines[-1])}",
         recap=True)
     for name, n in launches.items():
-        assert n == 10 * TRAIN_STEPS, f"training: {name} {n} launches, expected {10 * TRAIN_STEPS}"
+        assert n == 10 * TRAIN_STEPS, f"{label}: {name} {n} launches, expected {10 * TRAIN_STEPS}"
     assert [ln["env_steps"] for ln in lines] == [
         (i + 1) * TRAIN_ENVS for i in range(TRAIN_STEPS)]
     for ln in lines:
-        assert all(math.isfinite(v) for v in ln.values()), f"training: not finite: {ln}"
+        assert all(math.isfinite(v) for v in ln.values()), f"{label}: not finite: {ln}"
     metrics = ("critic_loss", "actor_loss", "alpha", "entropy")
     assert all(set(metrics) <= set(ln) for ln in lines[TRAIN_WARMUP:]), lines
     assert st.step == (TRAIN_STEPS - TRAIN_WARMUP) * TRAIN_UTD
@@ -437,12 +453,90 @@ def run_training(card):
     assert lines[-1]["ncon_peak"] <= TRAIN_K, lines[-1]
     step_ms = [(b - a) * 1e3 for a, b in zip([t0] + stamps[:-1], stamps)]
     learn_ms = step_ms[TRAIN_WARMUP + 1:]
-    log(f"training throughput: {lines[-1]['sps']} env-steps/s by the trainer's own "
+    log(f"{label} throughput: {lines[-1]['sps']} env-steps/s by the trainer's own "
         f"clock over its {TRAIN_STEPS} steps, {TRAIN_STEPS * TRAIN_ENVS / dt:.1f} with "
         f"its set-up; learning env-batch step (policy step + {TRAIN_UTD} updates) "
         f"{sum(learn_ms) / len(learn_ms):.1f} ms, mean of steps {TRAIN_WARMUP + 2}-"
         f"{TRAIN_STEPS}; all steps (ms, the first with set-up): "
-        f"{', '.join(f'{x:.1f}' for x in step_ms)}; on {card}", recap=True)
+        f"{', '.join(f'{x:.1f}' for x in step_ms)}", recap=True)
+    return trainer, st, launches, states
+
+
+def _same(a, b):
+    """Bit-equality of two tensors, or of two dicts of them, or of plain values."""
+    import torch
+
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    return a == b
+
+
+def check_resume(trainer, st, tcfg, sac_cfg, label):
+    """Save, restore (bit-equal: networks, buffer, normalizer, counters) and
+    one resumed learning step on a new trainer; returns the resumed state."""
+    import dataclasses
+    import tempfile
+
+    from gym_so100_tpu_torch.agents.train import Trainer
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_",
+                                     dir=Path(__file__).resolve().parent) as tmp:
+        path = trainer.save(st, tmp, st.batch_steps * TRAIN_ENVS)
+        st2 = trainer.restore(path)
+    saved, restored = trainer.sac.state_dict(st), trainer.sac.state_dict(st2)
+    for part in ("actor", "critic", "target_critic", "buffer", "normalizer"):
+        for k, v in saved[part].items():
+            assert _same(v, restored[part][k]), f"{label} restore: {part}.{k} differs"
+    assert _same(saved["log_alpha"], restored["log_alpha"])
+    assert (st2.step, st2.batch_steps) == (st.step, st.batch_steps)
+    resumed = Trainer(trainer.env.m, dataclasses.replace(
+        tcfg, total_steps=(TRAIN_STEPS + 1) * TRAIN_ENVS,
+        render_aux=trainer.env.render_aux), sac_cfg, device="cuda")
+    lines2 = []
+    st3 = resumed.train(seed=SEED, progress=lines2.append, init_state=st2)
+    assert [ln["env_steps"] for ln in lines2] == [(TRAIN_STEPS + 1) * TRAIN_ENVS], lines2
+    assert st3.step == st.step + TRAIN_UTD and st3.batch_steps == TRAIN_STEPS + 1
+    log(f"{label} save/restore: parameters, buffer and normalizer bit-equal; resumed at "
+        f"env step {TRAIN_STEPS * TRAIN_ENVS}, one more learning step -> "
+        f"{json.dumps(lines2[-1])}", recap=True)
+    return st3
+
+
+def update_ms(sac, st):
+    """One SAC update's device time (CUDA events over UPDATE_REPS updates
+    alone, on batches sampled beforehand)."""
+    import torch
+
+    batches = [st.buffer.sample(sac.cfg.batch_size, st.generator)
+               for _ in range(UPDATE_REPS + 1)]
+    sac.update(st, batches[0])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for b in batches[1:]:
+        sac.update(st, b)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / UPDATE_REPS
+
+
+def run_training(card):
+    """The training phase: Trainer.train on the K = 32 scene at 128 envs
+    (warm-up, then learning with utd updates per step), counted; both
+    kernels against their plain versions on the trainer env's state at
+    touchdown; save, restore (bit-equal) and one resumed step; the time of
+    one SAC update.  Returns {kernel name: launches, ms, ...} of the phase."""
+    from gym_so100_tpu_torch.agents.sac import SACConfig
+    from gym_so100_tpu_torch.agents.train import TrainConfig
+
+    tcfg = TrainConfig(task=TASK, num_envs=TRAIN_ENVS, total_steps=TRAIN_STEPS * TRAIN_ENVS,
+                       learning_starts=TRAIN_WARMUP * TRAIN_ENVS, utd=TRAIN_UTD,
+                       log_every=1, max_contacts=TRAIN_K)
+    trainer, st, launches, states = train_counted(tcfg, SACConfig(), "training",
+                                                  keep_states=True)
 
     # both kernels at K = 32 on the trainer env's first state where at
     # least half the envs have a contact
@@ -455,48 +549,160 @@ def run_training(card):
     rows = {"hull_sweep": check_hull(env, states[at], timed=True),
             "newton_solve": check_solver(env, states[at], timed=True)}
 
-    # save, restore bit-equal, one resumed step
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_",
-                                     dir=Path(__file__).resolve().parent) as tmp:
-        path = trainer.save(st, tmp, st.batch_steps * TRAIN_ENVS)
-        st2 = trainer.restore(path)
-    saved, restored = trainer.sac.state_dict(st), trainer.sac.state_dict(st2)
-    for part in ("actor", "critic", "target_critic", "buffer", "normalizer"):
-        for k, v in saved[part].items():
-            w = restored[part][k]
-            same = torch.equal(v, w) if isinstance(v, torch.Tensor) else v == w
-            assert same, f"restore: {part}.{k} differs"
-    assert torch.equal(saved["log_alpha"], restored["log_alpha"])
-    assert (st2.step, st2.batch_steps) == (st.step, st.batch_steps)
-    resumed = Trainer(env.m, dataclasses.replace(
-        tcfg, total_steps=(TRAIN_STEPS + 1) * TRAIN_ENVS), SACConfig(), device="cuda")
-    lines2 = []
-    st3 = resumed.train(seed=SEED, progress=lines2.append, init_state=st2)
-    assert [ln["env_steps"] for ln in lines2] == [(TRAIN_STEPS + 1) * TRAIN_ENVS], lines2
-    assert st3.step == st.step + TRAIN_UTD and st3.batch_steps == TRAIN_STEPS + 1
-    log(f"save/restore: parameters, buffer and normalizer bit-equal; resumed at "
-        f"env step {TRAIN_STEPS * TRAIN_ENVS}, one more learning step -> "
-        f"{json.dumps(lines2[-1])}", recap=True)
-
-    # one SAC update (full width, batch 256), CUDA events over the updates
-    # alone on batches sampled beforehand
+    st3 = check_resume(trainer, st, tcfg, SACConfig(), "training")
     sac = trainer.sac
-    batches = [st3.buffer.sample(sac.cfg.batch_size, st3.generator)
-               for _ in range(UPDATE_REPS + 1)]
-    sac.update(st3, batches[0])
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for b in batches[1:]:
-        sac.update(st3, b)
-    end.record()
-    torch.cuda.synchronize()
-    update_ms = start.elapsed_time(end) / UPDATE_REPS
-    log(f"SAC update: {update_ms:.4f} ms per update (features {sac.cfg.features}, "
+    ms = update_ms(sac, st3)
+    log(f"SAC update: {ms:.4f} ms per update (features {sac.cfg.features}, "
         f"batch {sac.cfg.batch_size}, CUDA events over {UPDATE_REPS}) on {card}",
         recap=True)
     return {name: dict(launches=launches[name], **rows[name]) for name in rows}
+
+
+def check_pixel_obs(obs, B):
+    import torch
+
+    assert set(obs) == {"pixels", "agent_pos"}, set(obs)
+    assert obs["pixels"].shape == (B, PIX_H, PIX_W, 3), obs["pixels"].shape
+    assert obs["pixels"].dtype == torch.uint8, obs["pixels"].dtype
+    assert obs["agent_pos"].shape == (B, 6) and obs["agent_pos"].dtype == torch.float32
+    assert bool(torch.isfinite(obs["agent_pos"]).all()), "agent_pos not finite"
+
+
+def red_centroids(frames):
+    """Centroid (x, y) of each frame's red pixels (B, H, W, 3 uint8) and
+    their count, as tests/test_renderer.py finds the cube."""
+    import torch
+
+    rgb = frames.int()
+    red = (rgb[..., 0] > 1.5 * rgb[..., 1]) & (rgb[..., 0] > 1.5 * rgb[..., 2])
+    n = red.sum((1, 2))
+    H, W = red.shape[1:]
+    ys = torch.arange(H, device=red.device, dtype=torch.float32)[:, None]
+    xs = torch.arange(W, device=red.device, dtype=torch.float32)[None, :]
+    cnt = n.clamp(min=1).float()
+    return (red * xs).sum((1, 2)) / cnt, (red * ys).sum((1, 2)) / cnt, n
+
+
+def run_pixel_env(card):
+    """The pixel env at the pixel artifact's setting (128 envs, 48x64,
+    K = 32), counted: reset, then control steps with seeded random actions,
+    half the envs auto-resetting on the first; obs shapes and dtypes, the
+    terminal frames, 10 launches of each kernel per control step; the
+    card's frames of 16 envs against the same renderer on the CPU; the red
+    cube's centroid against its projection; the render and step times.
+    Returns {kernel name: launches}."""
+    import torch
+
+    from gym_so100_tpu_torch.ops import smooth_lanes, solver_lanes
+    from gym_so100_tpu_torch.ops.collision import hull_lanes
+    from gym_so100_tpu_torch.parallel.batch import BatchedEnv
+
+    B = TRAIN_ENVS
+    env = BatchedEnv(task=TASK, num_envs=B, device="cuda", seed=SEED + 6,
+                     max_contacts=TRAIN_K, obs_mode="pixels_agent_pos",
+                     obs_height=PIX_H, obs_width=PIX_W)
+    r = env.renderer
+    log(f"pixel env: {B} envs, {PIX_H}x{PIX_W} top camera, {r.npad_valid} triangles "
+        f"({r.faces.shape[0]} padded, chunks of {r.tri_chunk}), K {TRAIN_K}", recap=True)
+    gen = torch.Generator(device=env.device).manual_seed(SEED + 7)
+    es = env.reset(seed=SEED + 8)
+    check_pixel_obs(env.observe(es), B)
+    half = B // 2
+    t = es.t.clone()
+    t[:half] = env.max_episode_steps - 1       # these auto-reset on the first step
+    es = es.replace(t=t)
+    hull_lanes.sweep_h.launches = 0
+    solver_lanes.solve_fused.launches = 0
+    step_ms = []
+    for i in range(PIX_STEPS):
+        actions = torch.rand(B, 6, generator=gen, device=env.device) * 2 - 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        es, obs, reward, term, trunc, info = env.step(es, actions)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        check_pixel_obs(obs, B)
+        check_pixel_obs(info["final_obs"], B)
+        assert bool(torch.isfinite(reward).all()), f"pixel step {i}: reward not finite"
+        done = term | trunc
+        fo = info["final_obs"]["pixels"]
+        if i == 0:
+            assert bool(done[:half].all()), "pixel env: the first half did not reset"
+            moved = (fo.int() - obs["pixels"].int()).abs().amax((1, 2, 3)) > 0
+            assert bool(moved[done].all()), "pixel env: a terminal frame equals the reset frame"
+            n_done = int(done.sum())
+        assert torch.equal(fo[~done], obs["pixels"][~done])
+    launches = {"hull_sweep": hull_lanes.sweep_h.launches,
+                "newton_solve": solver_lanes.solve_fused.launches}
+    log(f"pixel env: {PIX_STEPS} control steps, {n_done} auto-resets on the first, "
+        f"terminal frames differ from the reset frames there; launches {launches}",
+        recap=True)
+    for name, n in launches.items():
+        assert n == 10 * PIX_STEPS, f"pixel env: {name} {n} launches, expected {10 * PIX_STEPS}"
+
+    # the card's frames against the same renderer on the CPU
+    n = PIX_CPU_ENVS
+    ref = r.to("cpu").render_batch(es.physics.index(slice(0, n)).to("cpu"),
+                                   PIX_H, PIX_W, "top")
+    off = ((obs["pixels"][:n].cpu().int() - ref.int()).abs().amax(-1) > 1)
+    share = off.float().mean((1, 2))
+    exact = int((obs["pixels"][:n].cpu() == ref).all(-1).all(-1).all(-1).sum())
+    log(f"pixel frames, card vs CPU ({n} envs): worst frame {float(share.max()):.5f} of "
+        f"pixels more than 1 LSB apart (bound {PIX_FRAME_TOL}), {exact}/{n} frames "
+        f"identical", recap=True)
+    assert float(share.max()) <= PIX_FRAME_TOL, "pixel frames: card and CPU differ"
+
+    # the red cube lies where the renderer's camera projects it
+    cube = smooth_lanes.kinematics(env.m, es.physics).site_xpos[:, env.m.site_id("cube_site")]
+    px, py = r.project(es.physics, cube[:, None], PIX_H, PIX_W, "top")
+    cx, cy, nred = red_centroids(obs["pixels"])
+    seen = nred >= 4
+    err = torch.maximum((cx - px[:, 0]).abs(), (cy - py[:, 0]).abs())[seen]
+    log(f"pixel cube: visible (>= 4 red px) in {int(seen.sum())}/{B} envs, centroid vs "
+        f"projection max {float(err.max()):.3f} px (bound 4)", recap=True)
+    # at 48x64 the cube covers 1-6 pixels: about half the envs show 4
+    assert int(seen.sum()) >= B // 8, "pixel cube: visible in too few envs"
+    assert float(err.max()) < 4, "pixel cube: centroid away from its projection"
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    render = cuda_ms(lambda: r.render_batch(es.physics, PIX_H, PIX_W, "top"), RENDER_REPS)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    step = sum(step_ms[1:]) / len(step_ms[1:])
+    log(f"pixel render: {render:.4f} ms per batched {B}-env render (CUDA events over "
+        f"{RENDER_REPS}, kinematics included), {peak:.1f} MiB peak working memory; "
+        f"pixel control step {step:.1f} ms (host clock, mean of steps 2-{PIX_STEPS}; "
+        f"step 1 with its reset render {step_ms[0]:.1f} ms), render share "
+        f"{render / step:.4f}; on {card}", recap=True)
+    return launches
+
+
+def run_pixel_training(card):
+    """Pixel training at the artifact's setting (48x64, 128 envs, utd 8,
+    K = 32), full-width SAC (256, 256), batch 256, buffer 50,000: counted,
+    the uint8 buffer checked, save, restore (bit-equal) and one resumed
+    step, one pixel SAC update timed.  Returns {kernel name: launches}."""
+    import torch
+
+    from gym_so100_tpu_torch.agents.sac import SACConfig
+    from gym_so100_tpu_torch.agents.train import TrainConfig
+
+    tcfg = TrainConfig(task=TASK, num_envs=TRAIN_ENVS, total_steps=TRAIN_STEPS * TRAIN_ENVS,
+                       learning_starts=TRAIN_WARMUP * TRAIN_ENVS, utd=TRAIN_UTD,
+                       log_every=1, max_contacts=TRAIN_K, obs="pixels_agent_pos",
+                       obs_height=PIX_H, obs_width=PIX_W)
+    sac_cfg = SACConfig(obs_dim=6, pixels=(PIX_H, PIX_W))
+    trainer, st, launches, _ = train_counted(tcfg, sac_cfg, "pixel training")
+    pix = st.buffer.obs["pixels"]
+    assert pix.dtype == torch.uint8 and pix.shape == (sac_cfg.buffer_size, PIX_H, PIX_W, 3)
+    assert st.buffer.next_obs["pixels"].dtype == torch.uint8
+    assert int(pix[:st.buffer.size].amax()) > 0, "pixel training: empty frames stored"
+    st3 = check_resume(trainer, st, tcfg, sac_cfg, "pixel training")
+    ms = update_ms(trainer.sac, st3)
+    log(f"pixel SAC update: {ms:.4f} ms per update (NatureCNN {PIX_H}x{PIX_W} + "
+        f"features {sac_cfg.features}, batch {sac_cfg.batch_size}, CUDA events over "
+        f"{UPDATE_REPS}) on {card}", recap=True)
+    return launches
 
 
 def main():
@@ -598,7 +804,13 @@ def main():
     # 5. the training path, counted
     train = run_training(card)
 
-    # 6. results
+    # 6. the pixel env and pixel training, counted
+    t0 = time.perf_counter()
+    pixel_env = run_pixel_env(card)
+    train_pixels = run_pixel_training(card)
+    log(f"pixel phase: {time.perf_counter() - t0:.1f} s wall time", recap=True)
+
+    # 7. results
     for line in RECAP:
         log(f"recap: {line}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
@@ -608,7 +820,9 @@ def main():
                   "check_value", "check_bound")
     print(json.dumps({"kernels": [
         {**{k: row[k] for k in keys},
-         "train_k32": {k: train[row["name"]][k] for k in train_keys}}
+         "train_k32": {k: train[row["name"]][k] for k in train_keys},
+         "pixel_env": {"launches": pixel_env[row["name"]]},
+         "train_pixels": {"launches": train_pixels[row["name"]]}}
         for row in rows]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,22 @@
-"""SAC learner, state observations: networks, replay buffer and updates.
+"""SAC learner: networks, replay buffer and updates.
 
-The port of `gym_so100_tpu/agents/sac.py` for flat state obs: twin Q
-critics, a tanh-squashed Gaussian actor, automatic entropy tuning against
+The port of `gym_so100_tpu/agents/sac.py`: twin Q critics, a
+tanh-squashed Gaussian actor, automatic entropy tuning against
 `target_entropy`, Polyak target updates and running obs normalization
-(clip 10).  The replay buffer, the normalizer and the networks live on one
+(clip 10).  Observations are flat state vectors, or, with
+`SACConfig.pixels` = (H, W), dicts {"pixels": (H, W, 3) uint8,
+"agent_pos": (obs_dim,)} read through a NatureCNN encoder (the actor has
+its own, the twin critics share one) and stored as uint8 in the replay
+buffer.  The replay buffer, the normalizer and the networks live on one
 device; every random draw comes from the state's own `torch.Generator`.
 
 The state is mutable: `update`, `train_step` and `ingest` change the
 `SACState` they are given in place and return it.  Layouts and init follow
 the Flax modules of the JAX package, so `agents/convert.py` carries a JAX
 state across: a torch weight is the transpose of a Flax kernel, kernels
-start LeCun-normal (truncated at two standard deviations), biases at zero.
+start LeCun-normal (truncated at two standard deviations), biases at zero;
+convolutions pad as Flax's "SAME" does, and the CNN's features are
+flattened in Flax's (H, W, C) order.
 Adam runs with optax's defaults (betas 0.9/0.999, eps 1e-8).
 """
 
@@ -20,22 +26,22 @@ import copy
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from ..device import resolve_device
 
 LOG_2PI = math.log(2 * math.pi)
-_PIXELS = ("pixel observations need the NatureCNN encoder and the rasterizer, "
-           "which are not ported yet (ROADMAP.md, queue A3: pixels)")
 
 
 def lecun_normal_(weight: torch.Tensor, generator: torch.Generator):
-    """Flax's default Dense kernel init on a torch (out, in) weight: a normal
-    of variance 1/fan_in truncated to two standard deviations (drawn by
-    inverting the normal CDF of a uniform, as jax.random.truncated_normal
-    does)."""
-    std = math.sqrt(1.0 / weight.shape[1]) / 0.87962566103423978
+    """Flax's default Dense and Conv kernel init on a torch (out, in) or
+    (out, in, kh, kw) weight: a normal of variance 1/fan_in (fan_in = in *
+    kh * kw) truncated to two standard deviations (drawn by inverting the
+    normal CDF of a uniform, as jax.random.truncated_normal does)."""
+    std = math.sqrt(1.0 / math.prod(weight.shape[1:])) / 0.87962566103423978
     lo = math.erf(-2.0 / math.sqrt(2.0))
     u = torch.empty_like(weight).uniform_(lo, -lo, generator=generator)
     with torch.no_grad():
@@ -67,53 +73,131 @@ class MLP(nn.Module):
         return self.out(x)
 
 
+# XLA compiles the JAX package's `uint8 / 255.0` in float32 as a product
+# with the float32 reciprocal (the two differ by one ulp for 126 of the 256
+# values), so the port multiplies too
+INV_255 = float(np.float32(1.0 / 255.0))
+
+
+def unit_pixels(pixels, dtype):
+    """uint8 frames -> floats in [0, 1], computed in float32, as `dtype`."""
+    return (pixels.to(torch.float32) * INV_255).to(dtype)
+
+
+def same_padding(size, kernel, stride):
+    """(low, high) padding of one spatial axis under XLA's "SAME": the
+    output has ceil(size / stride) entries and the low side gets the
+    smaller half of the total."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class NatureCNN(nn.Module):
+    """The NatureCNN image encoder of the JAX package: conv 32 8x8/4, 64
+    4x4/2 and 64 3x3/1, each with ReLU and "SAME" padding, flattened in
+    (H, W, C) order, then Dense `out` and ReLU.  Takes (..., H, W, 3)
+    images in [0, 1]."""
+
+    LAYERS = ((32, 8, 4), (64, 4, 2), (64, 3, 1))     # (channels, kernel, stride)
+
+    def __init__(self, height, width, out=256, device=None, dtype=None):
+        super().__init__()
+        convs, self.pads = [], []
+        c_in, h, w = 3, height, width
+        for c_out, k, stride in self.LAYERS:
+            convs.append(torch.nn.utils.skip_init(
+                nn.Conv2d, c_in, c_out, k, stride=stride, device=device or "cpu",
+                dtype=dtype))
+            ph, pw = same_padding(h, k, stride), same_padding(w, k, stride)
+            self.pads.append((*pw, *ph))                 # F.pad: (left, right, top, bottom)
+            c_in, h, w = c_out, -(-h // stride), -(-w // stride)
+        self.convs = nn.ModuleList(convs)
+        self.dense = _linear(c_in * h * w, out, device, dtype)
+
+    def layers(self):
+        return [*self.convs, self.dense]
+
+    def forward(self, img):
+        lead = img.shape[:-3]
+        x = img.reshape(-1, *img.shape[-3:]).permute(0, 3, 1, 2)
+        for conv, pad in zip(self.convs, self.pads):
+            x = torch.relu(conv(F.pad(x, pad)))
+        x = x.permute(0, 2, 3, 1).reshape(*lead, -1)
+        return torch.relu(self.dense(x))
+
+
+class Encoder(nn.Module):
+    """Pixel obs front end: the CNN's features, then agent_pos."""
+
+    def __init__(self, pixels, device=None, dtype=None):
+        super().__init__()
+        self.cnn = NatureCNN(*pixels, device=device, dtype=dtype)
+
+    def forward(self, obs):
+        return torch.cat([self.cnn(obs["pixels"]), obs["agent_pos"]], dim=-1)
+
+
+def _encoder(pixels, obs_dim, device, dtype):
+    """(encoder or None, width of the encoded obs)."""
+    if not pixels:
+        return None, obs_dim
+    enc = Encoder(pixels, device, dtype)
+    return enc, enc.cnn.dense.out_features + obs_dim
+
+
 class Actor(nn.Module):
     """obs -> (mean, log_std), the head split [mean | log_std] and log_std
-    clipped to [log_std_min, log_std_max]."""
+    clipped to [log_std_min, log_std_max].  With `pixels` = (H, W) the obs
+    is the pixel dict, read through the actor's own Encoder."""
 
     def __init__(self, obs_dim, act_dim, features=(256, 256), log_std_min=-20.0,
-                 log_std_max=2.0, pixels=False, device=None, dtype=None):
+                 log_std_max=2.0, pixels=(), device=None, dtype=None):
         super().__init__()
-        if pixels:
-            raise NotImplementedError(_PIXELS)
         self.act_dim = act_dim
         self.log_std_min, self.log_std_max = log_std_min, log_std_max
-        self.mlp = MLP(obs_dim, features, 2 * act_dim, device, dtype)
+        self.encoder, n_in = _encoder(pixels, obs_dim, device, dtype)
+        self.mlp = MLP(n_in, features, 2 * act_dim, device, dtype)
 
     def mlps(self):
         return [self.mlp]
 
     def forward(self, obs):
-        mean, log_std = self.mlp(obs).split(self.act_dim, dim=-1)
+        x = obs if self.encoder is None else self.encoder(obs)
+        mean, log_std = self.mlp(x).split(self.act_dim, dim=-1)
         return mean, torch.clamp(log_std, self.log_std_min, self.log_std_max)
 
 
 class Critic(nn.Module):
-    """Twin Q: (obs, act) -> (q1, q2), each (batch,)."""
+    """Twin Q: (obs, act) -> (q1, q2), each (batch,).  With `pixels` the
+    two Q heads share one Encoder."""
 
-    def __init__(self, obs_dim, act_dim, features=(256, 256), pixels=False,
+    def __init__(self, obs_dim, act_dim, features=(256, 256), pixels=(),
                  device=None, dtype=None):
         super().__init__()
-        if pixels:
-            raise NotImplementedError(_PIXELS)
-        self.q1 = MLP(obs_dim + act_dim, features, 1, device, dtype)
-        self.q2 = MLP(obs_dim + act_dim, features, 1, device, dtype)
+        self.encoder, n_in = _encoder(pixels, obs_dim, device, dtype)
+        self.q1 = MLP(n_in + act_dim, features, 1, device, dtype)
+        self.q2 = MLP(n_in + act_dim, features, 1, device, dtype)
 
     def mlps(self):
         return [self.q1, self.q2]
 
     def forward(self, obs, act):
-        x = torch.cat([obs, act], dim=-1)
+        enc = obs if self.encoder is None else self.encoder(obs)
+        x = torch.cat([enc, act], dim=-1)
         return self.q1(x)[..., 0], self.q2(x)[..., 0]
 
 
 def init_flax_(module: nn.Module, generator: torch.Generator):
-    """Initialise every layer of an Actor or Critic as Flax's Dense does."""
+    """Initialise every layer of an Actor or Critic as Flax's Dense and Conv
+    do."""
+    layers = [] if module.encoder is None else module.encoder.cnn.layers()
     for mlp in module.mlps():
-        for lin in mlp.layers():
-            lecun_normal_(lin.weight, generator)
-            with torch.no_grad():
-                lin.bias.zero_()
+        layers += mlp.layers()
+    for layer in layers:
+        lecun_normal_(layer.weight, generator)
+        with torch.no_grad():
+            layer.bias.zero_()
 
 
 def sample_action(actor: Actor, obs, eps):
@@ -166,19 +250,33 @@ class Normalizer:
         return {"mean": self.mean, "var": self.var, "count": self.count}
 
 
+def _map_obs(fn, obs, *rest):
+    """fn applied to a flat obs tensor, or to each entry of an obs dict."""
+    if isinstance(obs, dict):
+        return {k: fn(v, *(r[k] for r in rest)) for k, v in obs.items()}
+    return fn(obs, *rest)
+
+
 class ReplayBuffer:
     """Fixed-capacity ring buffer of transitions on the device.  `ptr` and
     `size` are host integers (they depend only on batch sizes), so writing
-    and sampling never wait for the device."""
+    and sampling never wait for the device.
+
+    `obs_spec` is the flat obs width, or a dict name -> (shape, dtype) for
+    dict observations (the pixel obs keeps its frames as uint8)."""
 
     FIELDS = ("obs", "act", "rew", "next_obs", "done")
 
-    def __init__(self, capacity, obs_dim, act_dim, dtype=torch.float32, device="cpu"):
+    def __init__(self, capacity, obs_spec, act_dim, dtype=torch.float32, device="cpu"):
         z = lambda *s, dt=dtype: torch.zeros(*s, dtype=dt, device=device)
-        self.obs = z(capacity, obs_dim)
+        if isinstance(obs_spec, int):
+            mk = lambda: z(capacity, obs_spec)
+        else:
+            mk = lambda: {k: z(capacity, *sh, dt=dt) for k, (sh, dt) in obs_spec.items()}
+        self.obs = mk()
         self.act = z(capacity, act_dim)
         self.rew = z(capacity)
-        self.next_obs = z(capacity, obs_dim)
+        self.next_obs = mk()
         self.done = z(capacity, dt=torch.bool)     # terminal (not truncation)
         self.ptr = 0
         self.size = 0
@@ -191,14 +289,18 @@ class ReplayBuffer:
         """Write a batch of B transitions at the ring pointer."""
         B, cap = act.shape[0], self.capacity
         idx = (self.ptr + torch.arange(B, device=self.act.device)) % cap
-        for name, val in zip(self.FIELDS, (obs, act, rew, next_obs, done)):
-            buf = getattr(self, name)
+
+        def put(buf, val):
             buf[idx] = val.to(buf.dtype)
+
+        for name, val in zip(self.FIELDS, (obs, act, rew, next_obs, done)):
+            _map_obs(put, getattr(self, name), val)
         self.ptr = (self.ptr + B) % cap
         self.size = min(self.size + B, cap)
 
     def take(self, idx):
-        return {name: getattr(self, name)[idx] for name in self.FIELDS}
+        return {name: _map_obs(lambda a: a[idx], getattr(self, name))
+                for name in self.FIELDS}
 
     def sample(self, batch_size, generator):
         idx = torch.randint(0, max(self.size, 1), (batch_size,), generator=generator,
@@ -217,8 +319,8 @@ class SACConfig:
     tau: float = 0.005
     target_entropy: float = -2.0
     features: tuple = (256, 256)
-    # (H, W) of pixel observations; only the empty tuple (state obs) is
-    # ported
+    # (H, W) of the pixels_agent_pos obs (CNN + state encoder, obs_dim is
+    # then agent_pos's width); empty tuple = flat state obs
     pixels: tuple = ()
 
 
@@ -246,19 +348,43 @@ class SAC:
     lives in an SACState."""
 
     def __init__(self, cfg: SACConfig, device="cuda", dtype=torch.float32):
-        if cfg.pixels:
-            raise NotImplementedError(_PIXELS)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = dtype
 
     def make_actor(self) -> Actor:
         c = self.cfg
-        return Actor(c.obs_dim, c.act_dim, c.features, device=self.device, dtype=self.dtype)
+        return Actor(c.obs_dim, c.act_dim, c.features, pixels=c.pixels,
+                     device=self.device, dtype=self.dtype)
 
     def make_critic(self) -> Critic:
         c = self.cfg
-        return Critic(c.obs_dim, c.act_dim, c.features, device=self.device, dtype=self.dtype)
+        return Critic(c.obs_dim, c.act_dim, c.features, pixels=c.pixels,
+                      device=self.device, dtype=self.dtype)
+
+    def obs_spec(self):
+        """The replay buffer's obs spec (see ReplayBuffer): agent_pos is kept
+        in float32 whatever the learner's dtype, as in the JAX package."""
+        c = self.cfg
+        if not c.pixels:
+            return c.obs_dim
+        h, w = c.pixels
+        return {"pixels": ((h, w, 3), torch.uint8),
+                "agent_pos": ((c.obs_dim,), torch.float32)}
+
+    def _state_obs(self, obs):
+        """The part of `obs` the normalizer tracks: all of a flat obs, the
+        agent_pos of a pixel obs."""
+        return obs["agent_pos"] if self.cfg.pixels else obs
+
+    def _norm_obs(self, normalizer: Normalizer, obs):
+        """Normalize: running mean/var on the state part; pixels scaled to
+        [0, 1].  Both pass through float32 first, as in the JAX package."""
+        if not self.cfg.pixels:
+            return normalizer.norm(obs.to(self.dtype))
+        return {"pixels": unit_pixels(obs["pixels"], self.dtype),
+                "agent_pos": normalizer.norm(
+                    obs["agent_pos"].to(torch.float32).to(self.dtype))}
 
     def init(self, seed=0) -> SACState:
         """Fresh state: Flax-style init from a generator seeded with `seed`,
@@ -286,8 +412,8 @@ class SAC:
             actor=actor, critic=critic, target_critic=target, log_alpha=log_alpha,
             actor_opt=adam(actor.parameters()), critic_opt=adam(critic.parameters()),
             alpha_opt=adam([log_alpha]),
-            buffer=ReplayBuffer(cfg.buffer_size, cfg.obs_dim, cfg.act_dim, self.dtype,
-                                self.device),
+            buffer=ReplayBuffer(cfg.buffer_size, self.obs_spec(), cfg.act_dim,
+                                self.dtype, self.device),
             normalizer=normalizer or Normalizer.create(cfg.obs_dim, self.dtype, self.device),
             generator=generator, target_entropy=cfg.target_entropy,
         )
@@ -300,12 +426,13 @@ class SAC:
 
     @torch.no_grad()
     def act(self, st: SACState, obs, deterministic=False):
-        """Actions for `obs` (B, obs_dim); stochastic draws come from the
-        state's generator."""
-        nobs = st.normalizer.norm(obs.to(self.dtype))
+        """Actions for `obs` (B, obs_dim, or the pixel dict); stochastic draws
+        come from the state's generator."""
+        nobs = self._norm_obs(st.normalizer, obs)
         if deterministic:
             return det_action(st.actor, nobs)
-        return sample_action(st.actor, nobs, self._noise(st, obs.shape[0]))[0]
+        n = self._state_obs(obs).shape[0]
+        return sample_action(st.actor, nobs, self._noise(st, n))[0]
 
     # -- learning ------------------------------------------------------------
 
@@ -322,11 +449,11 @@ class SAC:
         for opt in (st.actor_opt, st.critic_opt, st.alpha_opt):
             for group in opt.param_groups:
                 group["lr"] = cfg.lr * st.lr_scale
-        nobs = st.normalizer.norm(batch["obs"])
+        nobs = self._norm_obs(st.normalizer, batch["obs"])
         alpha = st.log_alpha.detach().exp()
 
         with torch.no_grad():
-            nnext = st.normalizer.norm(batch["next_obs"])
+            nnext = self._norm_obs(st.normalizer, batch["next_obs"])
             next_act, next_logp = sample_action(st.actor, nnext, eps_next)
             tq1, tq2 = st.target_critic(nnext, next_act)
             tq = torch.minimum(tq1, tq2) - alpha * next_logp
@@ -363,10 +490,10 @@ class SAC:
         return st, metrics
 
     def ingest(self, st: SACState, obs, act, rew, next_obs, done):
-        """Write a batch of env transitions to the buffer and merge its obs
-        into the normalizer."""
+        """Write a batch of env transitions to the buffer and merge its
+        state obs into the normalizer."""
         st.buffer.add_batch(obs, act, rew, next_obs, done)
-        st.normalizer.update(obs.to(self.dtype))
+        st.normalizer.update(self._state_obs(obs).to(self.dtype))
         return st
 
     def train_step(self, st: SACState, obs, act, rew, next_obs, done, noise=None):
@@ -407,7 +534,7 @@ class SAC:
         st.critic_opt.load_state_dict(d["critic_opt"])
         st.alpha_opt.load_state_dict(d["alpha_opt"])
         for n in ReplayBuffer.FIELDS:
-            getattr(st.buffer, n).copy_(d["buffer"][n])
+            _map_obs(lambda a, v: a.copy_(v), getattr(st.buffer, n), d["buffer"][n])
         st.buffer.ptr, st.buffer.size = int(d["buffer"]["ptr"]), int(d["buffer"]["size"])
         st.normalizer = Normalizer(**{k: v.to(self.device)
                                       for k, v in d["normalizer"].items()})

@@ -1,11 +1,12 @@
 """SAC training loop: the batched env and the learner on one device.
 
-The port of `gym_so100_tpu/agents/train.py` for state observations: random
-actions until `learning_starts`, then one policy step, one buffer write and
-`utd` gradient updates per env-batch step; the reference's stage-based
-entropy/LR curriculum; deterministic evaluation; and checkpoints of the
-whole learner state (`torch.save`, with the same `sac_config.json` sidecar
-as the JAX trainer).
+The port of `gym_so100_tpu/agents/train.py`, on state or pixel
+observations: random actions until `learning_starts`, then one policy
+step, one buffer write and `utd` gradient updates per env-batch step; the
+reference's stage-based entropy/LR curriculum; deterministic evaluation,
+with an mp4 of env 0 when `video_dir` is set; and checkpoints of the whole
+learner state (`torch.save`, with the same `sac_config.json` sidecar as
+the JAX trainer).
 
 Transitions never leave the device.  Beyond the one host sync per control
 step of `BatchedEnv.step` (its any(done) test), the loop reads the device
@@ -19,6 +20,7 @@ import json
 import os
 import time
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -41,13 +43,17 @@ class TrainConfig:
     # contact slots of the scene built when no model is given (the JAX
     # package's default, GST_MAX_CONTACTS, is 32)
     max_contacts: int = 32
-    # only "state" (flat 15-dim) is ported; "pixels_agent_pos" raises
+    # obs type: "state" (flat 15-dim) or "pixels_agent_pos" (top-camera
+    # frames at obs_height x obs_width and the arm qpos)
     obs: str = "state"
+    obs_height: int = 48
+    obs_width: int = 64
+    render_aux: object = None       # aux dict of build_model, for a given model
     # periodic in-training evaluation (deterministic rollouts, best-model
-    # checkpoint); eval videos raise until the rasterizer is ported
+    # checkpoint, an mp4 of env 0's first episode)
     eval_every: int = 0             # env steps between evals; 0 = off
     eval_episodes: int = 8
-    video_dir: str | None = None
+    video_dir: str | None = None    # write eval_<step>.mp4 here
     # stage curriculum: tuple of (end_steps, target_entropy, lr) applied when
     # total env steps < end_steps * num_envs.  Empty = constant
     # hyperparameters; REFERENCE_STAGES is the reference's schedule.
@@ -76,10 +82,16 @@ class Trainer:
         self.env = BatchedEnv(
             model, tcfg.task, tcfg.num_envs, hull_contacts=tcfg.hull_contacts,
             obs_mode=tcfg.obs, device=self.device, max_contacts=tcfg.max_contacts,
+            obs_height=tcfg.obs_height, obs_width=tcfg.obs_width,
+            render_aux=tcfg.render_aux,
         )
-        self.sac = SAC(sac_cfg or SACConfig(), device=self.device)
+        if sac_cfg is None:
+            sac_cfg = (SACConfig(obs_dim=6, pixels=(tcfg.obs_height, tcfg.obs_width))
+                       if tcfg.obs == "pixels_agent_pos" else SACConfig())
+        self.sac = SAC(sac_cfg, device=self.device)
         self.env_state = None
         self._eval_env = None
+        self._video_renderer = None
         self._cur_stage = None
         self._best_eval = -float("inf")
 
@@ -174,42 +186,60 @@ class Trainer:
         """Deterministic-policy evaluation on a fresh env batch of its own
         (so the training env's generator is untouched).  Returns
         (mean_return, success_rate, frames) over the first
-        `tcfg.eval_episodes` envs; frames stay empty (eval videos need the
-        rasterizer)."""
+        `tcfg.eval_episodes` envs; frames, when `tcfg.video_dir` is set, are
+        env 0's (240, 320, 3) uint8 top-camera frames after each step of its
+        first episode (on a renderer at full mesh detail), else empty."""
         t = self.tcfg
-        if t.video_dir:
-            raise NotImplementedError(
-                "eval videos need the rasterizer, which is not ported yet "
-                "(ROADMAP.md, queue A3: pixels)")
         if self._eval_env is None:
             self._eval_env = BatchedEnv(
                 self.env.m, t.task, t.num_envs,
-                max_episode_steps=self.env.max_episode_steps, device=self.device)
+                max_episode_steps=self.env.max_episode_steps, obs_mode=t.obs,
+                device=self.device, obs_height=t.obs_height, obs_width=t.obs_width,
+                render_aux=self.env.render_aux)
         env = self._eval_env
+        if t.video_dir and self._video_renderer is None:
+            from ..render.rasterizer import Renderer
+
+            aux = self.env.render_aux
+            if aux is None:
+                raise ValueError("eval videos need render_aux (the aux dict from "
+                                 "build_model) for a given model")
+            self._video_renderer = Renderer(self.env.m, aux)
         es = env.reset(seed=seed + 12345)
         obs = env.observe(es)
         B = t.num_envs
         returns = torch.zeros(B, dtype=torch.float64, device=self.device)
         finished = torch.zeros(B, dtype=torch.bool, device=self.device)
         success = torch.zeros_like(finished)
+        frames = []
         for _ in range(env.max_episode_steps):
             acts = self.sac.act(st, obs, deterministic=True)
             es, obs, rew, term, trunc, info = env.step(es, acts)
             returns += rew * ~finished
             success |= term & ~finished
+            if t.video_dir and not bool(finished[0]):
+                frames.append(self._video_renderer.render(
+                    es.physics.index(0), 240, 320, "top").cpu().numpy())
             finished |= term | trunc
             if bool(finished.all()):
                 break
         k = max(1, min(t.eval_episodes, B))
-        return float(returns[:k].mean()), float(success[:k].double().mean()), []
+        return float(returns[:k].mean()), float(success[:k].double().mean()), frames
 
     def _run_eval(self, st, env_steps, progress):
-        mean_ret, succ_rate, _ = self.evaluate(st)
+        mean_ret, succ_rate, frames = self.evaluate(st)
         progress({
             "eval_at": env_steps,
             "eval_mean_return": round(mean_ret, 3),
             "eval_success_rate": round(succ_rate, 3),
         })
+        t = self.tcfg
+        if t.video_dir and frames:
+            import imageio
+
+            os.makedirs(t.video_dir, exist_ok=True)
+            imageio.mimsave(os.path.join(t.video_dir, f"eval_{env_steps}.mp4"),
+                            np.stack(frames), fps=50)
         if mean_ret > self._best_eval:
             self._best_eval = mean_ret
             if self.tcfg.checkpoint_dir:

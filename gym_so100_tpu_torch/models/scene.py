@@ -64,6 +64,14 @@ class _TensorFields:
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
 
+    def index(self, idx):
+        """Every tensor field indexed by `idx` (e.g. a slice of envs, or
+        None to add a leading batch axis); other fields as they are."""
+        return dataclasses.replace(self, **{
+            f.name: v[idx] for f in dataclasses.fields(self)
+            if isinstance(v := getattr(self, f.name), torch.Tensor)
+        })
+
 
 @dataclass(frozen=True)
 class CollisionPairs:

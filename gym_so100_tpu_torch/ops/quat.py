@@ -1,0 +1,53 @@
+"""Quaternion utilities, batch-first (MuJoCo conventions: quats are (w, x, y, z)).
+
+The port of `gym_so100_tpu/ops/quat.py` (the functions the renderer needs):
+every function takes (..., 4) quaternions and (..., 3) vectors, broadcast
+over the leading axes, and uses the same arithmetic as the JAX module.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def mul(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Hamilton product q * p for (..., 4) quaternions (w, x, y, z)."""
+    qw, qx, qy, qz = q.unbind(-1)
+    pw, px, py, pz = p.unbind(-1)
+    return torch.stack([
+        qw * pw - qx * px - qy * py - qz * pz,
+        qw * px + qx * pw + qy * pz - qz * py,
+        qw * py - qx * pz + qy * pw + qz * px,
+        qw * pz + qx * py - qy * px + qz * pw,
+    ], dim=-1)
+
+
+def rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vector(s) v (..., 3) by unit quaternion(s) q (..., 4), in the
+    expanded 15-multiply form."""
+    w, x, y, z = q.unbind(-1)
+    vx, vy, vz = v.unbind(-1)
+    # t = 2 * cross(q.xyz, v)
+    tx = 2.0 * (y * vz - z * vy)
+    ty = 2.0 * (z * vx - x * vz)
+    tz = 2.0 * (x * vy - y * vx)
+    # v + w*t + cross(q.xyz, t)
+    return torch.stack([
+        vx + w * tx + (y * tz - z * ty),
+        vy + w * ty + (z * tx - x * tz),
+        vz + w * tz + (x * ty - y * tx),
+    ], dim=-1)
+
+
+def to_mat(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (..., 4) -> rotation matrix (..., 3, 3)."""
+    w, x, y, z = q.unbind(-1)
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    m = torch.stack([
+        1.0 - 2.0 * (yy + zz), 2.0 * (xy - wz), 2.0 * (xz + wy),
+        2.0 * (xy + wz), 1.0 - 2.0 * (xx + zz), 2.0 * (yz - wx),
+        2.0 * (xz - wy), 2.0 * (yz + wx), 1.0 - 2.0 * (xx + yy),
+    ], dim=-1)
+    return m.reshape(q.shape[:-1] + (3, 3))

@@ -1,16 +1,17 @@
 """Batched lockstep env execution on one device.
 
-The port of `gym_so100_tpu/parallel/batch.py::BatchedEnv` (state
-observations; no sharding yet).  The env batch is one set of tensors with a
-leading env axis, stepped together.  Auto-reset follows Gymnasium's vector
-env convention: at an episode boundary the returned obs is the fresh
-episode's first observation and the terminal one goes to
+The port of `gym_so100_tpu/parallel/batch.py::BatchedEnv` (state and
+pixel observations; no sharding yet).  The env batch is one set of tensors
+with a leading env axis, stepped together.  Auto-reset follows Gymnasium's
+vector env convention: at an episode boundary the returned obs is the
+fresh episode's first observation and the terminal one goes to
 info["final_obs"]; episodes truncate at the registered limits.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
@@ -41,23 +42,23 @@ class BatchedEnv:
         self, m: Model | None = None, task: str = "so100_touch_cube",
         num_envs: int = 4096, max_episode_steps=None, hull_contacts=True,
         obs_mode="state", device="cuda", seed: int = 0, max_contacts: int = 16,
+        obs_height=48, obs_width=64, render_aux=None,
     ):
         """`m` defaults to the SO100 transfer-cube scene built with
         `max_contacts` contact slots, in float32.  obs_mode "state" gives a
         flat (15,) float32 vector per env (box, bin and ee positions, arm
-        qpos)."""
+        qpos); "pixels_agent_pos" gives {"pixels": (obs_height, obs_width, 3)
+        uint8 frame of the "top" camera, "agent_pos": (6,) float32 arm qpos}
+        per env, rendered on the env's device.  Pixels need the aux dict of
+        `build_model` (`render_aux`), which the default scene supplies."""
         self.device = resolve_device(device)
-        if obs_mode == "pixels_agent_pos":
-            raise NotImplementedError(
-                "pixel observations need the rasterizer, which is not ported "
-                "yet (ROADMAP.md, queue A: pixels/rasterizer)"
-            )
-        if obs_mode != "state":
+        if obs_mode not in ("state", "pixels_agent_pos"):
             raise ValueError(f"unknown obs_mode {obs_mode!r}")
         if m is None:
             from ..models.builder import build_model
 
-            m, _ = build_model(max_contacts=max_contacts, device=self.device)
+            m, aux = build_model(max_contacts=max_contacts, device=self.device)
+            render_aux = aux if render_aux is None else render_aux
         else:
             m = m.to(self.device)
         if not hull_contacts:
@@ -71,6 +72,20 @@ class BatchedEnv:
         self.max_episode_steps = max_episode_steps or EPISODE_LIMITS[task]
         self.ids = core.TaskIds.from_model(m)
         self.obs_mode = obs_mode
+        self.obs_height, self.obs_width = obs_height, obs_width
+        self.render_aux = render_aux
+        self.renderer = None
+        if obs_mode == "pixels_agent_pos":
+            if render_aux is None:
+                raise ValueError("pixels obs mode needs render_aux (the aux dict "
+                                 "from build_model)")
+            from ..render.rasterizer import Renderer
+
+            # 100 triangles per mesh (896 scene triangles) at observation
+            # size; GST_OBS_TRIS overrides
+            self.renderer = Renderer(
+                m, render_aux, tri_chunk=128,
+                max_tris_per_mesh=int(os.environ.get("GST_OBS_TRIS", "100")))
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
     def _spawn(self):
@@ -95,22 +110,36 @@ class BatchedEnv:
         box_pose = torch.as_tensor(box_pose, dtype=self.m.dtype, device=self.device)
         return core.reset(self.m, box_pose)
 
-    def observe(self, es: core.EnvState) -> torch.Tensor:
-        """The (num_envs, 15) state observation of `es` (kinematics only)."""
+    def _pixel_obs(self, physics):
+        return {
+            "pixels": self.renderer.render_batch(
+                physics, self.obs_height, self.obs_width, "top"),
+            "agent_pos": physics.qpos[:, :6].to(torch.float32),
+        }
+
+    def observe(self, es: core.EnvState):
+        """The observation of `es`: the (num_envs, 15) state vector
+        (kinematics only), or the pixel obs dict."""
+        if self.renderer is not None:
+            return self._pixel_obs(es.physics)
         d = smooth_lanes.kinematics(self.m, es.physics)
         return self._obs_vector(core.observations(self.m, d, es.physics, self.ids))
 
     def step(self, es: core.EnvState, actions, reset_box_pose=None):
-        """Returns (state, obs (B, 15) f32, reward (B,), terminated (B,),
-        truncated (B,), info).  At episode boundaries obs is the new
-        episode's first observation and info["final_obs"] the terminal one.
-        New episodes spawn the cube at `reset_box_pose` (B, 7) when given,
-        else from the env's generator."""
+        """Returns (state, obs, reward (B,), terminated (B,), truncated (B,),
+        info): obs (B, 15) float32, or the pixel obs dict.  At episode
+        boundaries obs is the new episode's first observation and
+        info["final_obs"] the terminal one.  New episodes spawn the cube at
+        `reset_box_pose` (B, 7) when given, else from the env's generator."""
         es2, obs, reward, terminated, d = core.step_batched(
             self.m, es, actions, self.ids, self.task)
         truncated = es2.t >= self.max_episode_steps
         done = terminated | truncated
-        final_obs = self._obs_vector(obs)
+        if self.renderer is not None:
+            # the terminal frame of the state before the autoreset
+            final_obs = self._pixel_obs(es2.physics)
+        else:
+            final_obs = self._obs_vector(obs)
         obs_out = final_obs
         # The whole autoreset branch runs only when some env is done.  The
         # test costs one device-to-host sync per control step.
@@ -120,8 +149,10 @@ class BatchedEnv:
             fresh = core.reset(self.m, torch.as_tensor(
                 reset_box_pose, dtype=self.m.dtype, device=self.device))
             es2 = _where(done, fresh, es2)
-            reset_obs = self.observe(fresh)
-            obs_out = torch.where(done[:, None], reset_obs, final_obs)
+            if self.renderer is not None:
+                obs_out = self._pixel_obs(es2.physics)
+            else:
+                obs_out = torch.where(done[:, None], self.observe(fresh), final_obs)
         return es2, obs_out, reward, terminated, truncated, {
             "final_obs": final_obs, "ncon": d.ncon,
         }

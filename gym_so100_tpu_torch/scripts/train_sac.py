@@ -1,12 +1,16 @@
-"""Train SAC on the port's batched env (state observations).
+"""Train SAC on the port's batched env.
 
 The counterpart of the JAX package's `scripts/train_sac.py`, with the same
-flags plus --max-contacts and --device.  Pixel observations and eval
-videos need the rasterizer, which is not ported yet: --obs
-pixels_agent_pos and --video-dir raise.
+flags plus --max-contacts and --device.
 
   python -m gym_so100_tpu_torch.scripts.train_sac --task so100_touch_cube \
       --num-envs 128 --utd 8 --total-steps 1500000 --checkpoint-dir runs/sac
+
+Pixel observations (48x64 top-camera frames and the arm qpos):
+
+  python -m gym_so100_tpu_torch.scripts.train_sac --task so100_touch_cube \
+      --obs pixels_agent_pos --obs-height 48 --obs-width 64 --num-envs 128 \
+      --utd 8 --total-steps 1500000 --checkpoint-dir runs/sac_pixels
 """
 
 from __future__ import annotations
@@ -40,17 +44,14 @@ def parse_args(argv=None):
     )
     p.add_argument("--max-contacts", type=int, default=32,
                    help="contact slots per env (K) of the scene")
-    p.add_argument("--obs", default="state", choices=["state", "pixels_agent_pos"],
-                   help="pixels_agent_pos is not ported yet and raises")
-    p.add_argument("--obs-height", type=int, default=48,
-                   help="pixel obs height (pixel obs are not ported yet)")
-    p.add_argument("--obs-width", type=int, default=64,
-                   help="pixel obs width (pixel obs are not ported yet)")
+    p.add_argument("--obs", default="state", choices=["state", "pixels_agent_pos"])
+    p.add_argument("--obs-height", type=int, default=48, help="pixel obs height")
+    p.add_argument("--obs-width", type=int, default=64, help="pixel obs width")
     p.add_argument("--eval-every", type=int, default=0,
                    help="env steps between deterministic evals (0 = off)")
     p.add_argument("--eval-episodes", type=int, default=8)
     p.add_argument("--video-dir", default=None,
-                   help="eval videos are not ported yet; setting this raises")
+                   help="write an mp4 of each eval's first episode here (needs imageio)")
     p.add_argument("--stages", action="store_true",
                    help="use the reference's 3-stage entropy/LR curriculum")
     p.add_argument("--tensorboard-dir", default=None,
@@ -62,12 +63,11 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.obs == "pixels_agent_pos" or args.video_dir:
-        raise NotImplementedError(
-            "pixel observations and eval videos need the rasterizer, which is "
-            "not ported yet (ROADMAP.md, queue A3: pixels)")
-    sac_cfg = SACConfig(lr=args.lr, buffer_size=args.buffer_size,
-                        batch_size=args.batch_size)
+    pixels = args.obs == "pixels_agent_pos"
+    sac_cfg = SACConfig(
+        obs_dim=6 if pixels else 15,
+        pixels=(args.obs_height, args.obs_width) if pixels else (),
+        lr=args.lr, buffer_size=args.buffer_size, batch_size=args.batch_size)
     if args.resume:
         # rebuild from the saved sidecar so the restored shapes match
         sac_cfg = Trainer.load_config(args.resume) or sac_cfg
@@ -85,8 +85,11 @@ def main(argv=None):
             max_contacts=args.max_contacts,
             stages=REFERENCE_STAGES if args.stages else (),
             obs=args.obs,
+            obs_height=args.obs_height,
+            obs_width=args.obs_width,
             eval_every=args.eval_every,
             eval_episodes=args.eval_episodes,
+            video_dir=args.video_dir,
         ),
         sac_cfg,
         device=args.device,

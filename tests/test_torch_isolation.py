@@ -9,8 +9,9 @@ port there.  Two guards:
   literal name) of a forbidden package;
 * a subprocess whose import system refuses those packages, which imports
   chip_smoke, builds the Model on the CPU, takes two BatchedEnv control
-  steps through the plain PyTorch paths and one SAC update, and imports
-  every agents module and the training script.
+  steps through the plain PyTorch paths, renders a pixel observation,
+  takes one SAC update, and imports every agents module and the training
+  script.
 """
 
 import ast
@@ -99,7 +100,7 @@ import chip_smoke  # the work sits under `if __name__ == "__main__"`
 from gym_so100_tpu_torch.models.builder import build_model
 from gym_so100_tpu_torch.parallel.batch import BatchedEnv
 
-m, _ = build_model(max_contacts=16, device="cpu")
+m, aux = build_model(max_contacts=16, device="cpu")
 assert m.nv == 12 and m.qpos0.dtype == torch.float32
 env = BatchedEnv(m, num_envs=8, device="cpu")
 es = env.reset(seed=0)
@@ -107,6 +108,9 @@ g = torch.Generator().manual_seed(0)
 for _ in range(2):
     es, obs, reward, term, trunc, info = env.step(es, torch.rand(8, 6, generator=g) * 2 - 1)
     assert bool(torch.isfinite(obs).all()) and obs.shape == (8, 15)
+penv = BatchedEnv(m, num_envs=2, device="cpu", obs_mode="pixels_agent_pos",
+                  render_aux=aux, obs_height=24, obs_width=32)
+assert penv.observe(penv.reset(seed=0))["pixels"].shape == (2, 24, 32, 3)
 from gym_so100_tpu_torch.agents import bc, convert, metrics, sac, train
 from gym_so100_tpu_torch.scripts import train_sac
 

@@ -161,13 +161,6 @@ def test_init_matches_flax_distribution():
         assert torch.equal(a, b) and not b.requires_grad
 
 
-def test_pixels_raise():
-    with pytest.raises(NotImplementedError, match="A3"):
-        sac.SAC(sac.SACConfig(obs_dim=6, pixels=(48, 64)), device="cpu")
-    with pytest.raises(NotImplementedError, match="A3"):
-        bc.load_demo_transitions([], pixels=True)
-
-
 def test_default_device_is_the_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")

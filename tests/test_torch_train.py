@@ -26,15 +26,20 @@ SMALL = SACConfig(batch_size=16, buffer_size=256, features=(32, 32))
 
 
 @pytest.fixture(scope="module")
-def model():
-    m, _ = build_model(max_contacts=32, device="cpu")
-    return m
+def model_and_aux():
+    return build_model(max_contacts=32, device="cpu")
 
 
-def _trainer(model, total_steps, ckpt_dir, stages=()):
+@pytest.fixture(scope="module")
+def model(model_and_aux):
+    return model_and_aux[0]
+
+
+def _trainer(model, total_steps, ckpt_dir, stages=(), render_aux=None):
     tr = Trainer(model, TrainConfig(
         task=TASK, num_envs=B, total_steps=total_steps, learning_starts=2 * B, utd=2,
         log_every=1, checkpoint_dir=str(ckpt_dir), checkpoint_every=B, stages=stages,
+        render_aux=render_aux,
     ), SMALL, device="cpu")
     tr.env.max_episode_steps = LIMIT
     return tr
@@ -65,12 +70,13 @@ def _ckpt_names(path):
 
 
 @pytest.fixture(scope="module")
-def runs(model, tmp_path_factory):
+def runs(model_and_aux, tmp_path_factory):
     """Run 1: 3 env-batch steps (2 warm-up, 1 learning), a checkpoint after
     each.  Run 2: a new trainer restores the last one and goes on to 5."""
+    model, aux = model_and_aux
     ckpt = tmp_path_factory.mktemp("ckpt")
     lines1, lines2 = [], []
-    tr1 = _trainer(model, 3 * B, ckpt)
+    tr1 = _trainer(model, 3 * B, ckpt, render_aux=aux)
     st1 = tr1.train(seed=0, progress=lines1.append)
     buffer1 = {k: getattr(st1.buffer, k).clone() for k in st1.buffer.FIELDS}
     meta1 = dict(step=st1.step, size=st1.buffer.size, batch_steps=st1.batch_steps,
@@ -157,15 +163,21 @@ def test_restore_is_bit_equal(runs, model, tmp_path):
 
 
 def test_evaluate(runs):
+    """Without video_dir no frames; with it, env 0's (240, 320, 3) uint8
+    top-camera frames after each step of its (LIMIT-step) first episode."""
     tr, st = runs["tr1"], runs["st1"]
     mean_ret, succ, frames = tr.evaluate(st)
     assert np.isfinite(mean_ret) and 0.0 <= succ <= 1.0 and frames == []
     tr.tcfg.video_dir = "videos"
     try:
-        with pytest.raises(NotImplementedError, match="A3"):
-            tr.evaluate(st)
+        mean_ret2, _, frames = tr.evaluate(st)
     finally:
         tr.tcfg.video_dir = None
+    assert mean_ret2 == mean_ret
+    assert len(frames) == LIMIT
+    for f in frames:
+        assert f.shape == (240, 320, 3) and f.dtype == np.uint8
+        assert len(np.unique(f.reshape(-1, 3), axis=0)) > 3
 
 
 def test_cli_trains_on_the_cpu(capsys):
@@ -173,5 +185,11 @@ def test_cli_trains_on_the_cpu(capsys):
                          "--total-steps", str(B), "--learning-starts", "0",
                          "--batch-size", "8", "--buffer-size", "64"])
     assert st.step == 1 and st.buffer.size == B
-    with pytest.raises(NotImplementedError, match="A3"):
-        train_sac.main(["--device", "cpu", "--obs", "pixels_agent_pos"])
+    st = train_sac.main(["--device", "cpu", "--task", TASK, "--num-envs", "2",
+                         "--total-steps", "2", "--learning-starts", "0",
+                         "--batch-size", "2", "--buffer-size", "8",
+                         "--obs", "pixels_agent_pos", "--obs-height", "24",
+                         "--obs-width", "32"])
+    assert st.step == 1 and st.buffer.size == 2
+    assert st.buffer.obs["pixels"].shape == (8, 24, 32, 3)
+    assert st.buffer.obs["pixels"].dtype == torch.uint8
