@@ -37,13 +37,34 @@ Phases, each printed on its own line:
     training as in 5 (2 warm-up and 8 learning env-batch steps, utd 8,
     full-width SAC, buffer 50,000 with uint8 frames), counted, with save,
     restore (bit-equal) and a resumed step; time one pixel SAC update;
- 7. print the build, ptxas, launch-shape and check lines again (so that
+ 7. HER, at the JAX HER artifact's configuration (so100_cube_to_bin, 256
+    envs, K = 32, utd 16, batch 256, 256 episodes, ratio 0.8, near-cube
+    goals, goal_min_dist 0.02, full-width SAC), cut to 8 env-batch steps
+    (2 warm-up) of 3-step episodes, counted: 10 launches of each kernel
+    per control step, every lane's episodes flushed twice (256 stored,
+    cursor >= 512), finite metrics, ncon within K; save, restore
+    (bit-equal) and one resumed step whose counter continues without
+    warm-up; the HER env-steps/s and one HER update (sample + SAC update)
+    by CUDA events; the HER env's state run on to the cube's touchdown
+    (the cut episodes end before it), and both kernels checked against
+    their plain versions there (B = 256, K = 32) and timed;
+ 8. EE: CartesianBatchedEnv on the mocap-weld scene, 1024 envs, K = 32,
+    gained weld, "follow" mode, counted: 10 control steps moving each
+    target along its own unit direction, 10 holding it; the target moved
+    5 cm, ee_err finite, the first 8 lanes within 2.5 cm of their target
+    and moved > 2 cm along their direction (the JAX tracking test's
+    criteria); both kernels against their plain versions on the state
+    after the moves, with the weld's equality rows (neq = 6) in the solve,
+    and timed; one EE control step timed;
+ 9. print the build, ptxas, launch-shape and check lines again (so that
     the end of the output holds them), the kernel table as one JSON line
     (per kernel: the K = 16 row, the statistic its check bounds with that
     bound, the training phase's launches, check and times under
-    "train_k32", and the launches of the pixel env and pixel training
-    under "pixel_env" and "train_pixels"), the card, then the result line
-    {"ok": true, "device": {...}}.
+    "train_k32", the launches of the pixel env and pixel training under
+    "pixel_env" and "train_pixels", the HER phase's launches, check and
+    times under "her", and the EE phase's launches, check, times and neq
+    under "ee"), the card, then the result
+    line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -85,6 +106,23 @@ PIX_STEPS = 3         # control steps of the counted pixel-env run
 PIX_CPU_ENVS = 16     # envs whose frames are rendered again on the CPU
 PIX_FRAME_TOL = 0.002     # share of a frame's pixels allowed > 1 LSB off the CPU's
 RENDER_REPS = 10      # batched renders timed with CUDA events
+# the HER phase: the JAX HER artifact's configuration (so100_cube_to_bin,
+# 256 envs, K = 32, utd 16, batch 256, lr 1e-4, 256 episodes, ratio 0.8,
+# near-cube goals only, goal_min_dist 0.02), full-width SAC; cut to 8
+# env-batch steps (2 warm-up) of 3-step episodes (300 in the artifact)
+HER_ENVS = 256
+HER_UTD = 16
+HER_EPISODES = 256
+HER_WARMUP = 2
+HER_STEPS = 8
+HER_EP_STEPS = 3
+HER_MIN_DIST = 0.02
+# the EE phase: CartesianBatchedEnv at the JAX class docstring's 1024 envs,
+# K = 32, gained weld, "follow" mode; the JAX tracking test's moves
+EE_ENVS = 1024
+EE_MOVE_STEPS = 10    # 0.5 x a unit direction (z >= 0) per control step
+EE_HOLD_STEPS = 10
+EE_TRACKED = 8        # lanes held to the JAX test's criteria
 
 
 RECAP = []   # the build, launch-shape and check lines, printed again at the end
@@ -222,6 +260,7 @@ def solver_problem(env, es):
     m, s = env.m, es.physics
     sl = smooth_lanes.forward_smooth_lanes(m, s)
     d = Data(geom_xpos=sl["geom_xpos"], geom_xmat=sl["geom_xmat"],
+             site_xpos=sl["site_xpos"], site_xmat=sl["site_xmat"],
              subtree_com=sl["subtree_com0"][:, None], cdof=sl["cdof"])
     cl = narrowphase.collide_batched_lanes(m, d)
     efc = constraint_lanes.make_efc_from_lanes(m, d, s, cl)
@@ -705,6 +744,215 @@ def run_pixel_training(card):
     return launches
 
 
+def run_her(card):
+    """HER at the artifact's configuration, cut to HER_STEPS env-batch steps
+    of HER_EP_STEPS-step episodes, counted; save, restore (bit-equal) and one
+    resumed step; the time of one HER update; both kernels against their
+    plain versions on the HER env's state at touchdown, timed.  Returns
+    {kernel name: launches, check and time fields}."""
+    import dataclasses
+    import math
+    import tempfile
+
+    import torch
+
+    from gym_so100_tpu_torch.agents.sac import SACConfig
+    from gym_so100_tpu_torch.agents.train_her import GOAL_DIM, HERConfig, HERTrainer
+    from gym_so100_tpu_torch.ops import solver_lanes
+    from gym_so100_tpu_torch.ops.collision import hull_lanes
+
+    cfg = HERConfig(num_envs=HER_ENVS, total_steps=HER_STEPS * HER_ENVS,
+                    learning_starts=HER_WARMUP * HER_ENVS, her_episodes=HER_EPISODES,
+                    her_ratio=0.8, utd=HER_UTD, curriculum_steps=1 << 30,
+                    goal_min_dist=HER_MIN_DIST, log_every=1, max_contacts=TRAIN_K,
+                    max_episode_steps=HER_EP_STEPS)
+    sac_cfg = SACConfig(obs_dim=15 + GOAL_DIM, act_dim=6, lr=1e-4, buffer_size=1,
+                        batch_size=256)
+    log(f"HER: so100_cube_to_bin, {HER_ENVS} envs, K {TRAIN_K}, utd {HER_UTD}, batch "
+        f"{sac_cfg.batch_size}, {HER_EPISODES} episodes, ratio {cfg.her_ratio}, near-cube "
+        f"goals, goal_min_dist {HER_MIN_DIST}, SAC {sac_cfg.features}; cut to "
+        f"{HER_STEPS} env-batch steps ({HER_WARMUP} warm-up) of {HER_EP_STEPS}-step "
+        f"episodes (300 in the artifact)", recap=True)
+    trainer = HERTrainer(None, cfg, sac_cfg, device="cuda")
+    lines, stamps = [], []
+
+    def progress(line):
+        stamps.append(time.perf_counter())
+        lines.append(line)
+
+    hull_lanes.sweep_h.launches = 0
+    solver_lanes.solve_fused.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts = trainer.train(seed=SEED, progress=progress)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"hull_sweep": hull_lanes.sweep_h.launches,
+                "newton_solve": solver_lanes.solve_fused.launches}
+    her = ts.her
+    done = sum(ln["episodes_done"] for ln in lines)
+    log(f"HER: {HER_STEPS} env-batch steps, {ts.sac.step} SAC updates, {done} episodes "
+        f"ended ({done - 2 * HER_ENVS} beyond two per lane: successes, and the episodes "
+        f"that restarted lanes then ended), "
+        f"buffer cursor {her.ptr}, {her.n_eps} stored, launches {launches}, last line "
+        f"{json.dumps(lines[-1])}", recap=True)
+    for name, n in launches.items():
+        assert n == 10 * HER_STEPS, f"HER: {name} {n} launches, expected {10 * HER_STEPS}"
+    assert [ln["env_steps"] for ln in lines] == [(i + 1) * HER_ENVS for i in range(HER_STEPS)]
+    for ln in lines:
+        assert all(math.isfinite(v) for v in ln.values()), f"HER: not finite: {ln}"
+    assert her.n_eps == HER_EPISODES and her.ptr == done >= 2 * HER_ENVS, (her.ptr, done)
+    assert ts.sac.step == (HER_STEPS - HER_WARMUP) * HER_UTD, ts.sac.step
+    lens = her.ep_len
+    assert bool(((lens >= 1) & (lens <= HER_EP_STEPS)).all()), "HER: episode lengths"
+    for name in ("obs", "next_obs", "agoal", "dgoal"):
+        assert bool(torch.isfinite(getattr(her, name)).all()), f"HER buffer: {name}"
+    assert lines[-1]["ncon_peak"] <= TRAIN_K, lines[-1]
+    step_ms = [(b - a) * 1e3 for a, b in zip([t0] + stamps[:-1], stamps)]
+    learn_ms = step_ms[HER_WARMUP + 1:]
+    log(f"HER throughput: {lines[-1]['sps']} env-steps/s by the trainer's own clock over "
+        f"its {HER_STEPS} steps, {HER_STEPS * HER_ENVS / dt:.1f} with its set-up; learning "
+        f"env-batch step (policy step + {HER_UTD} HER updates) "
+        f"{sum(learn_ms) / len(learn_ms):.1f} ms, mean of steps {HER_WARMUP + 2}-{HER_STEPS}; "
+        f"all steps (ms, the first with set-up): {', '.join(f'{x:.1f}' for x in step_ms)}; "
+        f"on {card}", recap=True)
+
+    # save -> restore, bit-equal; one resumed step continues the counter
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_her_",
+                                     dir=Path(__file__).resolve().parent) as tmp:
+        path = trainer.save(ts, tmp, ts.genv.total)
+        ts2 = trainer.restore(path)
+    assert _same(trainer.state_dict(ts), trainer.state_dict(ts2)), "HER restore differs"
+    resumed = HERTrainer(trainer.m, dataclasses.replace(
+        cfg, total_steps=(HER_STEPS + 1) * HER_ENVS), sac_cfg, device="cuda")
+    lines2 = []
+    ts3 = resumed.train(seed=SEED, progress=lines2.append, init_state=ts2)
+    assert [ln["env_steps"] for ln in lines2] == [(HER_STEPS + 1) * HER_ENVS], lines2
+    assert ts3.sac.step == ts.sac.step + HER_UTD, "HER: the resumed step took no updates"
+    log(f"HER save/restore: whole state bit-equal; resumed at env step "
+        f"{HER_STEPS * HER_ENVS}, one learning step (no warm-up) -> "
+        f"{json.dumps(lines2[-1])}", recap=True)
+
+    # one HER update: sample + SAC update, by CUDA events
+    sac, st = resumed.sac, ts3.sac
+
+    def her_update():
+        batch = ts3.her.sample(sac_cfg.batch_size, st.generator, cfg.her_ratio,
+                               cfg.distance_threshold)
+        sac.update(st, batch)
+
+    ms = cuda_ms(her_update, UPDATE_REPS)
+    log(f"HER update: {ms:.4f} ms per update (HER sample + SAC update, features "
+        f"{sac_cfg.features}, batch {sac_cfg.batch_size}, CUDA events over {UPDATE_REPS}) "
+        f"on {card}", recap=True)
+
+    # both kernels at the path's shapes (B = 256, K = 32) on the HER env's
+    # own state, run on to the cube's touchdown: the cut episodes end
+    # before the cube lands, so the counted run saw no contact
+    env = resumed.env
+    gen = torch.Generator(device=env.device).manual_seed(SEED + 11)
+    es, steps = ts3.genv.es, 0
+    while solver_problem(env, es)[2].con_active.any(0).float().mean() < 0.5:
+        assert steps < TOUCHDOWN_MAX, "HER: no touchdown: too few envs have a contact"
+        es = advance(env, es, 1, gen)
+        steps += 1
+    log(f"HER touchdown (K {TRAIN_K}, {HER_ENVS} envs): {steps} control steps after the "
+        f"resumed step", recap=True)
+    rows = {"hull_sweep": check_hull(env, es, timed=True),
+            "newton_solve": check_solver(env, es, timed=True, floor_samples=FLOOR_SAMPLES)}
+    return {name: dict(launches=launches[name], **rows[name]) for name in rows}
+
+
+def run_ee(card):
+    """The Cartesian env at 1024 envs, counted: moves along per-env unit
+    directions, then holds; the JAX tracking criteria on the first lanes;
+    both kernels against their plain versions on the state after the moves
+    (the weld's equality rows in the solve), timed; an EE control step
+    timed.  Returns {kernel: dict(launches, check and time fields, neq)}."""
+    import numpy as np
+    import torch
+
+    from gym_so100_tpu_torch.envs.ee_env import CartesianBatchedEnv
+    from gym_so100_tpu_torch.ops import smooth_lanes, solver_lanes
+    from gym_so100_tpu_torch.ops.collision import hull_lanes
+
+    B = EE_ENVS
+    env = CartesianBatchedEnv(num_envs=B, device="cuda", seed=SEED + 9,
+                              max_contacts=TRAIN_K)
+    m = env.m
+    tb = hull_lanes.hull_tables(m)
+    log(f"EE: CartesianBatchedEnv, {B} envs, K {TRAIN_K}, gained weld (solimp "
+        f"{m.eq_solimp[0, :2].tolist()}, solref {m.eq_solref[0].tolist()}), "
+        f"{env.orientation_mode} mode; model nq {m.nq} nv {m.nv}, pairs "
+        f"{len(m.pairs.box_box)} box-box / {len(m.pairs.hull_box)} hull-box / "
+        f"{len(m.pairs.hull_hull)} hull-hull; hull tables G {tb.G} geoms, ND "
+        f"{tb.D.shape[0]} directions, P {tb.P} pairs", recap=True)
+    rng = np.random.RandomState(0)
+    dirs = rng.uniform(-1, 1, (B, 3))
+    dirs[:, 2] = np.abs(dirs[:, 2])              # stay above the table
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    dirs_t = torch.tensor(dirs, dtype=torch.float32, device=env.device)
+    move = torch.cat([dirs_t * 0.5, torch.zeros(B, 1, device=env.device)], 1)
+    hold = torch.zeros(B, 4, device=env.device)
+
+    es = env.reset(seed=SEED + 10)
+    ee_site = env.ids.ee_site
+    start = es.physics.mocap_pos[:, 0].clone()
+    ee0 = smooth_lanes.kinematics(m, es.physics).site_xpos[:, ee_site].clone()
+    hull_lanes.sweep_h.launches = 0
+    solver_lanes.solve_fused.launches = 0
+    step_ms = []
+    moved_state = None
+    for i in range(EE_MOVE_STEPS + EE_HOLD_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        es, obs, reward, term, trunc, info = env.step(es, move if i < EE_MOVE_STEPS else hold)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        assert obs.shape == (B, 15) and bool(torch.isfinite(obs).all()), f"EE step {i}: obs"
+        assert bool(torch.isfinite(info["ee_err"]).all()), f"EE step {i}: ee_err"
+        if i == EE_MOVE_STEPS - 1:
+            moved_state = es
+    n_steps = EE_MOVE_STEPS + EE_HOLD_STEPS
+    launches = {"hull_sweep": hull_lanes.sweep_h.launches,
+                "newton_solve": solver_lanes.solve_fused.launches}
+    for name, n in launches.items():
+        assert n == 10 * n_steps, f"EE: {name} {n} launches, expected {10 * n_steps}"
+
+    target = es.physics.mocap_pos[:, 0]
+    moved = (target - start).norm(dim=1)
+    assert float((moved - 0.05).abs().max()) <= 1e-5, "EE: the target did not move 5 cm"
+    ee = smooth_lanes.kinematics(m, es.physics).site_xpos[:, ee_site]
+    err = (ee - target).norm(dim=1)
+    along = ((ee - ee0) * dirs_t).sum(1)
+    n = EE_TRACKED
+    q = torch.quantile(err, torch.tensor([0.5, 0.95], device=err.device)).tolist()
+    log(f"EE: {EE_MOVE_STEPS} move + {EE_HOLD_STEPS} hold control steps, launches "
+        f"{launches}; target moved 5 cm (max dev {float((moved - 0.05).abs().max()):.2e}); "
+        f"ee_err over all {B} lanes: min {float(err.min()):.4f} median {q[0]:.4f} p95 "
+        f"{q[1]:.4f} max {float(err.max()):.4f} m, {int((err < 0.025).sum())} lanes within "
+        f"2.5 cm, {int((along > 0.02).sum())} moved > 2 cm along their direction; first "
+        f"{n}: err {[round(x, 4) for x in err[:n].tolist()]}, along "
+        f"{[round(x, 4) for x in along[:n].tolist()]}", recap=True)
+    assert bool((err[:n] < 0.025).all()), f"EE: first {n} lanes off their targets"
+    assert bool((along[:n] > 0.02).all()), f"EE: first {n} lanes did not follow"
+
+    neq = solver_problem(env, moved_state)[2].neq
+    log(f"EE kernel checks on the state after the moves: neq {neq} equality rows "
+        f"(the 6-row weld) in the Newton solve", recap=True)
+    assert neq == 6, neq
+    rows = {"hull_sweep": check_hull(env, moved_state, timed=True),
+            "newton_solve": check_solver(env, moved_state, timed=True,
+                                         floor_samples=FLOOR_SAMPLES)}
+    step = sum(step_ms[1:]) / len(step_ms[1:])
+    log(f"EE control step: {step:.1f} ms (host clock, mean of steps 2-{n_steps}; the first "
+        f"{step_ms[0]:.1f} ms), {B / step * 1e3:.1f} env-steps/s; kernels "
+        f"{rows['hull_sweep']['ms']:.4f} + {rows['newton_solve']['ms']:.4f} ms per launch "
+        f"x 10 = {10 * (rows['hull_sweep']['ms'] + rows['newton_solve']['ms']) / step:.4f} "
+        f"of a control step; on {card}", recap=True)
+    return {name: dict(launches=launches[name], neq=neq, **rows[name]) for name in rows}
+
+
 def main():
     try:
         import torch
@@ -810,7 +1058,17 @@ def main():
     train_pixels = run_pixel_training(card)
     log(f"pixel phase: {time.perf_counter() - t0:.1f} s wall time", recap=True)
 
-    # 7. results
+    # 7. HER, counted
+    t0 = time.perf_counter()
+    her = run_her(card)
+    log(f"HER phase: {time.perf_counter() - t0:.1f} s wall time", recap=True)
+
+    # 8. the Cartesian (mocap-weld) env, counted, with kernel checks at neq = 6
+    t0 = time.perf_counter()
+    ee = run_ee(card)
+    log(f"EE phase: {time.perf_counter() - t0:.1f} s wall time", recap=True)
+
+    # 9. results
     for line in RECAP:
         log(f"recap: {line}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
@@ -818,11 +1076,15 @@ def main():
             "check_value", "check_bound")
     train_keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                   "check_value", "check_bound")
+    ee_keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "check_value", "check_bound", "neq")
     print(json.dumps({"kernels": [
         {**{k: row[k] for k in keys},
          "train_k32": {k: train[row["name"]][k] for k in train_keys},
          "pixel_env": {"launches": pixel_env[row["name"]]},
-         "train_pixels": {"launches": train_pixels[row["name"]]}}
+         "train_pixels": {"launches": train_pixels[row["name"]]},
+         "her": {k: her[row["name"]][k] for k in train_keys},
+         "ee": {k: ee[row["name"]][k] for k in ee_keys}}
         for row in rows]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -425,14 +425,16 @@ class SAC:
     # -- acting --------------------------------------------------------------
 
     @torch.no_grad()
-    def act(self, st: SACState, obs, deterministic=False):
-        """Actions for `obs` (B, obs_dim, or the pixel dict); stochastic draws
-        come from the state's generator."""
+    def act(self, st: SACState, obs, deterministic=False, noise=None):
+        """Actions for `obs` (B, obs_dim, or the pixel dict); the standard
+        normal draw of a stochastic action is `noise` (B, act_dim) when
+        given, else from the state's generator."""
         nobs = self._norm_obs(st.normalizer, obs)
         if deterministic:
             return det_action(st.actor, nobs)
-        n = self._state_obs(obs).shape[0]
-        return sample_action(st.actor, nobs, self._noise(st, n))[0]
+        if noise is None:
+            noise = self._noise(st, self._state_obs(obs).shape[0])
+        return sample_action(st.actor, nobs, noise)[0]
 
     # -- learning ------------------------------------------------------------
 

@@ -16,7 +16,7 @@
 // forbids FMA, so the floor is about twice the bound that counts a
 // multiply-add as two operations at the FMA rate.
 //
-// Design: a block serves E = 8 envs.  It stages, once:
+// Design: a block serves E envs (8 at the SO100 scene).  It stages, once:
 // the E envs' p and R rows (12*G floats each, read as rows of E consecutive
 // floats), and every geom's true vertices as float4 (604 vertices, 9.7 KB).
 // A thread owns one (geom, direction) cell for ALL E envs: one shared float4
@@ -26,14 +26,20 @@
 // spread over the banks: 2*G*(ND|1)*4 B = 26.6 KB per env.  At G = 25,
 // ND = 132, E = 8 that is 212.8 KB of tables + 9.6 KB of poses + 9.7 KB of
 // vertices = 232,164 B of the 232,448 a block may hold, so one block per
-// SM.  E is fixed at 8; a scene whose tables do not fit makes the entry
-// point return cudaErrorInvalidValue.  The block has 512 threads (16
-// warps; 256 were slower on the H100), 6.4 cells per thread, about 90
-// registers.  The pair phase spreads the P*E
-// (pair, env) items over the block, env fastest, so its outputs go out as
-// rows of E consecutive floats.  Left on the table: with one block per SM
-// the staging, sweep and pair phases of a block do not overlap, and the
-// 1,032 pair items take three rounds of 512 (the third for 8 items).
+// SM.  The mocap-weld scene has one hull geom more (its mocap target's
+// box, G = 26), which tips 8 envs over the limit (241,192 B), so E is 8
+// where that fits and 4 otherwise (125,544 B there); a scene whose tables
+// do not fit 4 envs makes the entry point return cudaErrorInvalidValue.
+// E = 4 on the joint scene took 13% longer at 4096 envs (and 40% less at
+// 128, where 8 envs per block leave most SMs idle), so 8 stays first
+// (scripts/hull_ab.py).  The block has 512 threads (16 warps; 256 were
+// slower on the H100), 6.4 cells per thread, 64 registers, no spills (an
+// E = 8 build without the template used 90 and ran as fast).  The pair
+// phase spreads the P*E (pair, env) items over the block, env fastest, so
+// its outputs go out as rows of E consecutive floats.  Left on the
+// table: with one block per SM the staging, sweep and pair phases of a
+// block do not overlap, and the 1,032 pair items take three rounds of 512
+// (the third for 8 items).
 //
 // Rounding: every product and sum uses __fmul_rn/__fadd_rn, which nvcc
 // never contracts into an FMA, in the same order as the plain PyTorch
@@ -45,11 +51,10 @@
 namespace {
 
 constexpr int THREADS = 512;
-constexpr int E = 8;                    // envs per block
 constexpr size_t SMEM_LIMIT = 232448;   // dynamic shared memory of one block
 
 struct Shape {
-    int G, ND, NDp, P, Vtot;
+    int G, ND, NDp, P, Vtot, E;         // E: envs per block
 
     __host__ __device__ size_t tables() const { return (size_t)E * 2 * G * NDp; }
     __host__ __device__ size_t poses() const { return (size_t)E * 12 * G; }
@@ -60,6 +65,7 @@ struct Shape {
     }
 };
 
+template <int E>
 __global__ void __launch_bounds__(THREADS) hull_sweep_kernel(
     const float* __restrict__ p,      // (3G, B) rows j*G + g
     const float* __restrict__ R,      // (9G, B) rows (j*3+k)*G + g
@@ -176,36 +182,60 @@ __global__ void __launch_bounds__(THREADS) hull_sweep_kernel(
     }
 }
 
+// The block shape for these sizes: 8 envs per block where their shared
+// memory fits, else 4; E = 0 when not even 4 fit.
+Shape shape_of(int G, int ND, int P, int Vtot)
+{
+    const int choices[] = {8, 4};
+    for (int E : choices) {
+        const Shape s{G, ND, ND | 1, P, Vtot, E};
+        if (s.bytes() <= SMEM_LIMIT) return s;
+    }
+    return Shape{G, ND, ND | 1, P, Vtot, 0};
+}
+
+template <int E>
+int launch_sweep(const float* p, const float* R, const float* verts, const float* D,
+                 const int* counts, const int* i1, const int* i2, float* out,
+                 const Shape& s, int Vmax, int B, cudaStream_t stream)
+{
+    const size_t smem = s.bytes();
+    if (smem > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(
+            hull_sweep_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    hull_sweep_kernel<E><<<(B + E - 1) / E, THREADS, smem, stream>>>(
+        p, R, verts, D, counts, i1, i2, out, s, Vmax, B);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Launch shape for these sizes: shape[0] envs per block, shape[1] threads,
-// shape[2] bytes of dynamic shared memory.  Vtot is the sum of the counts.
+// Launch shape for these sizes: shape[0] envs per block (0: does not fit),
+// shape[1] threads, shape[2] bytes of dynamic shared memory.  Vtot is the
+// sum of the counts.
 extern "C" void gst_hull_sweep_shape(int G, int ND, int P, int Vtot, int* shape)
 {
-    const Shape s{G, ND, ND | 1, P, Vtot};
-    shape[0] = E;
+    const Shape s = shape_of(G, ND, P, Vtot);
+    shape[0] = s.E;
     shape[1] = THREADS;
     shape[2] = (int)s.bytes();
 }
 
-// Returns cudaErrorInvalidValue when the E-env block's tables do not fit in
-// one block's shared memory (a scene with more geoms, directions or
-// vertices than the SO100 scene needs fewer envs per block).
+// Returns cudaErrorInvalidValue when not even a 4-env block's tables fit
+// in one block's shared memory.
 extern "C" int gst_hull_sweep(
     const float* p, const float* R, const float* verts, const float* D,
     const int* counts, const int* i1, const int* i2, float* out,
     int G, int ND, int P, int Vmax, int Vtot, int B, void* stream)
 {
     if (B == 0) return 0;
-    const Shape s{G, ND, ND | 1, P, Vtot};
-    const size_t smem = s.bytes();
-    if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            hull_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
+    const Shape s = shape_of(G, ND, P, Vtot);
+    const cudaStream_t st = (cudaStream_t)stream;
+    switch (s.E) {
+    case 8: return launch_sweep<8>(p, R, verts, D, counts, i1, i2, out, s, Vmax, B, st);
+    case 4: return launch_sweep<4>(p, R, verts, D, counts, i1, i2, out, s, Vmax, B, st);
+    default: return (int)cudaErrorInvalidValue;
     }
-    hull_sweep_kernel<<<(B + E - 1) / E, THREADS, smem, (cudaStream_t)stream>>>(
-        p, R, verts, D, counts, i1, i2, out, s, Vmax, B);
-    return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 """Env-layer constants and action scaling.
 
-The parts of `gym_so100_tpu/envs/constants.py` the batched env uses: control
-period, joint list and ranges, the start pose, cube spawn ranges, and the
+The parts of `gym_so100_tpu/envs/constants.py` the batched envs use: control
+period, joint list and ranges, the bin's interior box (the HER goal
+curriculum's late goals), the start pose, cube spawn ranges, and the
 [-1, 1] -> radians action scaling, as torch functions (batched, any device).
 """
 
@@ -33,6 +34,9 @@ JOINT_RANGES = np.array(
         [-0.174, 1.75],   # gripper
     ]
 )
+
+bin_min = np.array([-0.25, 0.7, 0.01], dtype=np.float32)
+bin_max = np.array([-0.14, 0.76, 0.05], dtype=np.float32)
 
 SO100_START_ARM_POSE = np.array([0.0, -0.96, 1.16, 0.0, 0.0, 0.02239])
 

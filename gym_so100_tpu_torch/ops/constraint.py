@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..models.scene import JNT_FREE, Data, Model, State
+from . import quat
 
 MINVAL = 1e-15
 MINIMP = 0.0001
@@ -76,51 +77,6 @@ def _body_dof_masks(m: Model):
     return mask
 
 
-def _qmul(q, p):
-    """Hamilton product of (..., 4) quaternions (w, x, y, z)."""
-    qw, qx, qy, qz = q.unbind(-1)
-    pw, px, py, pz = p.unbind(-1)
-    return torch.stack([
-        qw * pw - qx * px - qy * py - qz * pz,
-        qw * px + qx * pw + qy * pz - qz * py,
-        qw * py - qx * pz + qy * pw + qz * px,
-        qw * pz + qx * py - qy * px + qz * pw,
-    ], -1)
-
-
-def _qconj(q):
-    return q * torch.tensor([1.0, -1, -1, -1], dtype=q.dtype, device=q.device)
-
-
-def _quat_from_mat(R):
-    """Rotation matrices (..., 3, 3) -> unit quaternions (..., 4), branchless
-    Shepperd's method (select among the four stable cases)."""
-    tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
-    w0 = torch.sqrt(torch.clamp(1.0 + tr, min=1e-30)) / 2
-    q0 = torch.stack([
-        w0,
-        (R[..., 2, 1] - R[..., 1, 2]) / (4 * w0),
-        (R[..., 0, 2] - R[..., 2, 0]) / (4 * w0),
-        (R[..., 1, 0] - R[..., 0, 1]) / (4 * w0),
-    ], -1)
-
-    def cand(i, j, k):
-        s = torch.sqrt(torch.clamp(
-            1.0 + R[..., i, i] - R[..., j, j] - R[..., k, k], min=1e-30)) * 2
-        vec = [(R[..., k, j] - R[..., j, k]) / s, None, None, None]
-        vec[i + 1] = s / 4
-        vec[j + 1] = (R[..., j, i] + R[..., i, j]) / s
-        vec[k + 1] = (R[..., k, i] + R[..., i, k]) / s
-        return torch.stack(vec, -1)
-
-    d0, d1, d2 = R[..., 0, 0], R[..., 1, 1], R[..., 2, 2]
-    q = torch.where(
-        (tr > 0)[..., None], q0,
-        torch.where(((d0 >= d1) & (d0 >= d2))[..., None], cand(0, 1, 2),
-                    torch.where((d1 >= d2)[..., None], cand(1, 2, 0), cand(2, 0, 1))))
-    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
-
-
 def point_jacobians(m: Model, d: Data, body_ids, points):
     """Translational and rotational Jacobians of world `points` (B, N, 3)
     attached to `body_ids` (N,), from the com-frame cdof axes.  Returns
@@ -158,9 +114,9 @@ def equality_rows(m: Model, d: Data, s: State):
         p1 = d.site_xpos[:, s1]                             # (B, NEQ, 3)
         p2 = d.site_xpos[:, s2]
         res_t = p1 - p2
-        q1 = _quat_from_mat(d.site_xmat[:, s1])
-        q2 = _quat_from_mat(d.site_xmat[:, s2])
-        res_r = _qmul(_qconj(q2), q1)[..., 1:]
+        q1 = quat.from_mat(d.site_xmat[:, s1])
+        q2 = quat.from_mat(d.site_xmat[:, s2])
+        res_r = quat.mul(quat.conj(q2), q1)[..., 1:]
         Jt1, Jr1 = point_jacobians(m, d, sb1, p1)
         Jt2, Jr2 = point_jacobians(m, d, sb2, p2)
         # M[:, k] = vec(conj(q2) (0, e_k) q1); d res_r / d omega1 = 0.5 M
@@ -168,7 +124,7 @@ def equality_rows(m: Model, d: Data, s: State):
         cols = []
         for k in range(3):
             ek = torch.cat([torch.zeros(1, dtype=dtype, device=dev), eye[k]])
-            cols.append(_qmul(_qmul(_qconj(q2), ek.expand_as(q1)), q1)[..., 1:])
+            cols.append(quat.mul(quat.mul(quat.conj(q2), ek.expand_as(q1)), q1)[..., 1:])
         Mrot = torch.stack(cols, -1)                        # (B, NEQ, 3, 3)
         Jrot = 0.5 * torch.einsum("beij,bejv->beiv", Mrot, Jr1 - Jr2)
         Jeq = torch.cat([Jt1 - Jt2, Jrot], dim=2)           # (B, NEQ, 6, nv)

@@ -1,6 +1,7 @@
 """Quaternion utilities, batch-first (MuJoCo conventions: quats are (w, x, y, z)).
 
-The port of `gym_so100_tpu/ops/quat.py` (the functions the renderer needs):
+The port of `gym_so100_tpu/ops/quat.py` (the functions the renderer, the
+weld rows and the Cartesian env need):
 every function takes (..., 4) quaternions and (..., 3) vectors, broadcast
 over the leading axes, and uses the same arithmetic as the JAX module.
 """
@@ -20,6 +21,11 @@ def mul(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
         qw * py - qx * pz + qy * pw + qz * px,
         qw * pz + qx * py - qy * px + qz * pw,
     ], dim=-1)
+
+
+def conj(q: torch.Tensor) -> torch.Tensor:
+    """Conjugate (w, -x, -y, -z) of (..., 4) quaternions."""
+    return q * torch.tensor([1.0, -1, -1, -1], dtype=q.dtype, device=q.device)
 
 
 def rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -51,3 +57,32 @@ def to_mat(q: torch.Tensor) -> torch.Tensor:
         2.0 * (xz - wy), 2.0 * (yz + wx), 1.0 - 2.0 * (xx + yy),
     ], dim=-1)
     return m.reshape(q.shape[:-1] + (3, 3))
+
+
+def from_mat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices (..., 3, 3) -> unit quaternions (..., 4), branchless
+    Shepperd's method (select among the four stable cases)."""
+    tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    w0 = torch.sqrt(torch.clamp(1.0 + tr, min=1e-30)) / 2
+    q0 = torch.stack([
+        w0,
+        (R[..., 2, 1] - R[..., 1, 2]) / (4 * w0),
+        (R[..., 0, 2] - R[..., 2, 0]) / (4 * w0),
+        (R[..., 1, 0] - R[..., 0, 1]) / (4 * w0),
+    ], -1)
+
+    def cand(i, j, k):
+        s = torch.sqrt(torch.clamp(
+            1.0 + R[..., i, i] - R[..., j, j] - R[..., k, k], min=1e-30)) * 2
+        vec = [(R[..., k, j] - R[..., j, k]) / s, None, None, None]
+        vec[i + 1] = s / 4
+        vec[j + 1] = (R[..., j, i] + R[..., i, j]) / s
+        vec[k + 1] = (R[..., k, i] + R[..., i, k]) / s
+        return torch.stack(vec, -1)
+
+    d0, d1, d2 = R[..., 0, 0], R[..., 1, 1], R[..., 2, 2]
+    q = torch.where(
+        (tr > 0)[..., None], q0,
+        torch.where(((d0 >= d1) & (d0 >= d2))[..., None], cand(0, 1, 2),
+                    torch.where((d1 >= d2)[..., None], cand(1, 2, 0), cand(2, 0, 1))))
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)

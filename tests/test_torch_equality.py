@@ -74,3 +74,27 @@ def test_equality_rows_match(scene):
     assert efc.neq == neq
     np.testing.assert_array_equal(efc.aref[:neq].numpy(),
                                   torch.cat([b[1] for b in blocks_t], 1).T.numpy())
+
+
+def test_quat_from_mat_matches_jax():
+    """`quat.from_mat` against the JAX package's on random rotations and on
+    rotations by nearly pi about each axis, which take each of the four
+    branches of Shepperd's method; float64, to 1e-12."""
+    from gym_so100_tpu.ops import quat as jax_quat
+    from gym_so100_tpu_torch.ops import quat
+
+    rng = np.random.RandomState(8)
+    q = rng.randn(200, 4)
+    near_pi = np.concatenate([np.full((3, 1), 1e-3), np.eye(3)], 1)
+    q = np.concatenate([q, near_pi, -near_pi[:, [0, 2, 3, 1]]])
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    R = quat.to_mat(torch.from_numpy(q))
+    ours = quat.from_mat(R)
+    theirs = jax_quat.from_mat(jax.numpy.asarray(R.numpy()))
+    np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=TOL, atol=TOL)
+    # a rotation round-trips up to the quaternion's sign
+    sign = np.sign((ours.numpy() * q).sum(1, keepdims=True))
+    np.testing.assert_allclose(ours.numpy() * sign, q, atol=1e-12)
+    tr = R[:, 0, 0] + R[:, 1, 1] + R[:, 2, 2]
+    diag = R.diagonal(dim1=1, dim2=2).argmax(1)
+    assert (tr > 0).any() and all((diag[tr <= 0] == i).any() for i in range(3))

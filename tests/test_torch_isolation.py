@@ -10,8 +10,9 @@ port there.  Two guards:
 * a subprocess whose import system refuses those packages, which imports
   chip_smoke, builds the Model on the CPU, takes two BatchedEnv control
   steps through the plain PyTorch paths, renders a pixel observation,
-  takes one SAC update, and imports every agents module and the training
-  script.
+  takes one SAC update, imports every agents module, both training
+  scripts and the hull kernel A/B script, and takes one HER goal-env step and one Cartesian (mocap-weld)
+  env step.
 """
 
 import ast
@@ -119,6 +120,20 @@ st = s.init(seed=0)
 st, m = s.train_step(st, obs, torch.rand(8, 6, generator=g) * 2 - 1, reward,
                      info["final_obs"], term)
 assert st.step == 1 and all(bool(torch.isfinite(v)) for v in m.values())
+from gym_so100_tpu_torch.agents import her, train_her
+from gym_so100_tpu_torch.envs import ee_env, goal_env
+from gym_so100_tpu_torch.scripts import hull_ab, train_sac_her
+
+tr = train_her.HERTrainer(env.m, train_her.HERConfig(num_envs=2, her_episodes=2), sac.SACConfig(
+    obs_dim=18, buffer_size=1, batch_size=8, features=(16, 16)), device="cpu")
+ts = tr.init(seed=0)
+ts, rew, succ, hm = tr._do_step(ts, learn=False)
+assert rew.shape == (2,) and ts.genv.t.tolist() == [1, 1] and ts.genv.total == 2
+assert bool(torch.isfinite(ts.st_obs[:, 0]).all())
+m_ee, _ = build_model(ee_env.EE_XML, max_contacts=8, device="cpu")
+ee = ee_env.CartesianBatchedEnv(m_ee, num_envs=2, device="cpu")
+es, obs, reward, term, trunc, info = ee.step(ee.reset(seed=0), torch.zeros(2, 4))
+assert obs.shape == (2, 15) and bool(torch.isfinite(info["ee_err"]).all())
 loaded = sorted(n for n in sys.modules if n.split(".")[0] in FORBIDDEN)
 assert not loaded, loaded
 print("ISOLATED OK")

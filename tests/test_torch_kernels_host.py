@@ -13,19 +13,24 @@ an exchange through a per-block buffer between two warp barriers, so a warp-coop
 PyTorch versions:
 
 * hull sweep, float32: equal to `sweep_h_plain` (same operations, same
-  order), also at a batch that leaves the last block partly empty;
-  tables too large for a block make the entry point return an error;
+  order), also at a batch that leaves the last block partly empty, and on
+  the mocap-weld scene, whose larger tables run 4 envs per block; tables
+  too large for a 4-env block make the entry point return an error;
 * Newton solve, built in float64 (every `float` of the source made
   `double`): equal to `solve_plain` in float64 under the same budgets to
   1e-9 on at least 95% of the lanes, on a state whose contacts reach both
   the top and the middle zone of the elliptic cone (a lane can part at a knife edge of the
   line search, e.g. the sign of a directional derivative that is 0 up to
-  rounding); built in float32: finite, with iteration counts in range;
+  rounding), and on two states of the mocap-weld scene, whose 6 equality
+  rows lead the rows (there half the lanes sit on such knife edges, so
+  the lanes that one-ulp perturbations of the plain solve's inputs change
+  are held to what those perturbations do instead); built in float32: finite, with iteration counts in range;
   in both builds, the results of a batch that leaves the last block partly
   empty equal those of a full batch on its lanes;
 * the float64 check fails for mutated copies of the solver source: a
   middle-zone gradient or Hessian term scaled, or the rows of one lane of
-  the warp dropped from the gradient.
+  the warp dropped from the gradient; on the EE states, the equality
+  rows' gradient scaled by 1.01.
 
 It skips where no host C++ compiler is installed.
 """
@@ -41,6 +46,7 @@ import numpy as np
 import pytest
 import torch
 
+from gym_so100_tpu_torch.envs.ee_env import EE_XML, CartesianBatchedEnv
 from gym_so100_tpu_torch.models.builder import build_model
 from gym_so100_tpu_torch.models.scene import Data, State
 from gym_so100_tpu_torch.ops import constraint_lanes, smooth_lanes, solver_lanes
@@ -210,6 +216,7 @@ def host_tmp(tmp_path_factory):
 def host_libs(host_tmp):
     hull = _build(host_tmp, "hull_sweep", "float")
     hull.gst_hull_sweep.argtypes = [_P] * 8 + [_I] * 6 + [_P]
+    hull.gst_hull_sweep_shape.argtypes = [_I] * 4 + [_P]
     libs = dict(hull=hull)
     for real in ("float", "double"):
         libs[f"solve_{real}"] = _solver_lib(host_tmp, real)
@@ -250,6 +257,53 @@ def contact_state():
     d = Data(geom_xpos=sl["geom_xpos"], geom_xmat=sl["geom_xmat"],
              subtree_com=sl["subtree_com0"][:, None], cdof=sl["cdof"])
     return m, s, sl, d
+
+
+def _ee_state(lift_mocap_box):
+    """A float32 batch of the mocap-weld (EE) scene: the cube resting on
+    the table, random arm offsets, and each mocap target 1-3 cm off the ee
+    site, after 20 substeps; the 6 weld rows lead the constraint rows.  The
+    scene's mocap target carries a 4 x 12 x 4 cm box that lies in the
+    gripper (16 deep contacts per env); `lift_mocap_box` puts that box 10 m
+    above its body, out of reach, so the cube's table contacts remain."""
+    m, _ = build_model(EE_XML, max_contacts=16, device="cpu")
+    if lift_mocap_box:
+        box = [g for g in range(m.ngeom) if m.body_mocapid[m.geom_bodyid[g]] >= 0]
+        gpos = m.geom_pos.clone()
+        gpos[box, 2] += 10.0
+        m = dataclasses.replace(m, geom_pos=gpos)
+    B = 32
+    rng = np.random.RandomState(6)
+    env = CartesianBatchedEnv(m, num_envs=B, device="cpu")
+    pose = np.zeros((B, 7))
+    pose[:, 0] = rng.uniform(-0.25, -0.15, B)
+    pose[:, 1] = rng.uniform(0.3, 0.6, B)
+    pose[:, 2] = 0.0205
+    pose[:, 3] = 1.0
+    s = env.reset(box_pose=pose).physics
+    qpos = s.qpos.clone()
+    qpos[:, :5] += torch.tensor(rng.uniform(-0.2, 0.2, (B, 5)), dtype=torch.float32)
+    off = rng.randn(B, 1, 3)
+    off *= rng.uniform(0.01, 0.03, (B, 1, 1)) / np.linalg.norm(off, axis=-1, keepdims=True)
+    s = s.replace(qpos=qpos, mocap_pos=s.mocap_pos + torch.tensor(off, dtype=torch.float32))
+    s, _ = fwd.n_steps_batched(env.m, s, 20)
+    sl = smooth_lanes.forward_smooth_lanes(env.m, s)
+    d = Data(geom_xpos=sl["geom_xpos"], geom_xmat=sl["geom_xmat"],
+             site_xpos=sl["site_xpos"], site_xmat=sl["site_xmat"],
+             subtree_com=sl["subtree_com0"][:, None], cdof=sl["cdof"])
+    return env.m, s, sl, d
+
+
+@pytest.fixture(scope="module")
+def ee_full_scene():
+    return _ee_state(lift_mocap_box=False)
+
+
+@pytest.fixture(scope="module", params=["lifted_mocap_box", "full_scene"])
+def ee_state(request, ee_full_scene):
+    if request.param == "full_scene":
+        return request.param, ee_full_scene
+    return request.param, _ee_state(lift_mocap_box=True)
 
 
 def _hull_inputs(contact_state, lanes=None):
@@ -294,11 +348,26 @@ def test_hull_kernel_source_equals_plain_in_a_partial_block(host_libs, contact_s
 
 def test_hull_kernel_source_refuses_tables_too_large_for_a_block(host_libs,
                                                                  contact_state):
-    """Tables of 8 envs that do not fit one block's shared memory make the
-    entry point return an error, and nothing is launched."""
+    """Tables that do not fit one block's shared memory at 8 envs, nor at
+    4, make the entry point return an error, and nothing is launched."""
     tb, args = _hull_inputs(contact_state)
     err, out = _hull_host(host_libs["hull"], tb, args, ND=4 * tb.D.shape[0])
     assert err != 0 and torch.isnan(out).all()
+
+
+def test_hull_kernel_source_equals_plain_on_the_ee_scene(host_libs, ee_full_scene):
+    """The mocap-weld scene has one hull geom more (G = 26, P = 138): 8
+    envs no longer fit a block, so the kernel runs 4 per block, and its
+    tables stay bit-equal to the plain version's (B = 32 and 29)."""
+    for lanes in (None, 29):
+        tb, args = _hull_inputs(ee_full_scene, lanes)
+        shape = (ctypes.c_int * 3)()
+        host_libs["hull"].gst_hull_sweep_shape(tb.G, tb.D.shape[0], tb.P, tb.vtot, shape)
+        assert (tb.G, tb.P, shape[0]) == (26, 138, 4)
+        ref = hull_lanes.sweep_h_plain(*args)
+        err, out = _hull_host(host_libs["hull"], tb, args)
+        assert err == 0 and torch.equal(out, ref)
+    assert (ref[:tb.P] < 0).any(), "no penetrating hull pair in the test state"
 
 
 def _solve_host(lib, m, qM, a0, efc, warm, budgets, tol):
@@ -328,9 +397,11 @@ def _problem(contact_state, dtype, lanes=None):
             cast(s.qacc_warmstart[:lanes]))
 
 
-def _share_equal_in_float64(lib, contact_state, budgets, monkeypatch, lanes=None):
+def _share_equal_in_float64(lib, contact_state, budgets, monkeypatch, lanes=None,
+                            zones=("top", "middle")):
     """Share of lanes on which the float64 kernel source equals
-    `solve_plain` (qacc and qfrc to 1e-9, same iteration count)."""
+    `solve_plain` (qacc and qfrc to 1e-9, same iteration count); the
+    state's active contacts must reach each of the cone `zones`."""
     m, qM, a0, efc, warm = _problem(contact_state, torch.float64, lanes)
     # the float32 budgets and tol (and two shorter ones) on both sides, so
     # that lanes stop with their budget spent as on the card
@@ -338,10 +409,11 @@ def _share_equal_in_float64(lib, contact_state, budgets, monkeypatch, lanes=None
     monkeypatch.setattr(solver_lanes, "budgets", lambda m, dtype: (*budgets, tol))
     qk, fk, nk = _solve_host(lib, m, qM, a0, efc, warm, budgets, tol)
     qp, fp, npl = solver_lanes.solve_plain(m, qM, a0, efc, warm)
-    # the state must reach every zone of the elliptic cone
+    # the state must reach the given zones of the elliptic cone
     jar = (efc.J * qp.T[:, None]).sum(0) - efc.aref
     cone = solver_lanes._cost_terms(efc, jar)[5]
-    assert (cone["top"] & efc.con_active).any() and (cone["middle"] & efc.con_active).any()
+    for zone in zones:
+        assert (cone[zone] & efc.con_active).any(), zone
     same = ((qk - qp).abs().amax(1) <= 1e-9 * qp.abs().amax().clamp(min=1.0)) & \
            ((fk - fp).abs().amax(1) <= 1e-9 * fp.abs().amax().clamp(min=1.0)) & \
            (nk == npl.double())
@@ -349,6 +421,8 @@ def _share_equal_in_float64(lib, contact_state, budgets, monkeypatch, lanes=None
 
 
 FULL_BUDGETS = (solver_lanes.NEWTON_ITERS, solver_lanes.LS_ITERS, solver_lanes.BRACKET_ITERS)
+EPS64 = 2.220446049250313e-16
+PERTURB_SAMPLES = 40      # one-ulp perturbations of the plain solve's inputs
 
 
 @pytest.mark.parametrize("budgets", [FULL_BUDGETS, (3, 6, 5), (1, 6, 0)])
@@ -357,6 +431,65 @@ def test_solver_kernel_source_equals_plain_in_float64(host_libs, contact_state, 
     share = _share_equal_in_float64(host_libs["solve_double"], contact_state, budgets,
                                     monkeypatch)
     assert share >= 0.95, share
+
+
+def _check_ee_state(lib, state, monkeypatch):
+    """The EE scene: the 6 weld rows (neq = 6, active in every env, with a
+    residual) lead the rows, and every env has contacts.
+
+    Its states put many lanes on knife edges of the float64 plain solve
+    itself: one-ulp perturbations of its inputs (PERTURB_SAMPLES of them)
+    change the iteration count of about half the lanes (the stop test
+    after convergence, with the mocap box lifted) and, on the full scene,
+    move lanes by far more than 1e-9 of the scale.  So the
+    criterion above (1e-9, same iteration count, >= 95% of lanes) holds on
+    the lanes that no perturbation changes; on the others the kernel may
+    part from the plain solve only as the perturbations do: values by at
+    most twice the most they moved that lane, and another iteration count
+    only where they changed it."""
+    m, s, sl, d = state
+    efc = constraint_lanes.make_efc_from_lanes(m, d, s, narrowphase.collide_batched_lanes(m, d))
+    assert efc.neq == 6 and (efc.D[:6] > 0).all() and (efc.pos[:6].abs().amax(0) > 1e-4).all()
+    m, qM, a0, efc, warm = _problem(state, torch.float64)
+    tol = solver_lanes.budgets(m, torch.float32)[-1]
+    monkeypatch.setattr(solver_lanes, "budgets", lambda m, dtype: (*FULL_BUDGETS, tol))
+    qk, fk, nk = _solve_host(lib, m, qM, a0, efc, warm, FULL_BUDGETS, tol)
+    qp, fp, npl = solver_lanes.solve_plain(m, qM, a0, efc, warm)
+    sq, sf = qp.abs().amax().clamp(min=1.0), fp.abs().amax().clamp(min=1.0)
+    dq, df = (qk - qp).abs().amax(1), (fk - fp).abs().amax(1)
+    same_x = (dq <= 1e-9 * sq) & (df <= 1e-9 * sf)
+    same_n = nk == npl.double()
+    gen = torch.Generator().manual_seed(7)
+    ulp = lambda t: t * (1 + EPS64 * torch.randn(t.shape, generator=gen, dtype=t.dtype))
+    wq, wf = torch.zeros_like(dq), torch.zeros_like(df)
+    moved_n = torch.zeros_like(same_n)
+    for _ in range(PERTURB_SAMPLES):
+        q2, f2, n2 = solver_lanes.solve_plain(
+            m, ulp(qM), ulp(a0),
+            dataclasses.replace(efc, J=ulp(efc.J), aref=ulp(efc.aref), D=ulp(efc.D)), warm)
+        wq = torch.maximum(wq, (q2 - qp).abs().amax(1))
+        wf = torch.maximum(wf, (f2 - fp).abs().amax(1))
+        moved_n |= n2 != npl
+    stable = (wq <= 1e-9 * sq) & (wf <= 1e-9 * sf) & ~moved_n
+    assert stable.sum() >= 8, stable
+    assert float((same_x & same_n)[stable].double().mean()) >= 0.95
+    assert (dq[~same_x] <= 2 * wq[~same_x]).all() and (df[~same_x] <= 2 * wf[~same_x]).all()
+    assert not (~same_n & ~moved_n).any()
+
+
+def test_solver_kernel_source_with_equality_rows_equals_plain_in_float64(
+        host_libs, ee_state, monkeypatch):
+    _check_ee_state(host_libs["solve_double"], ee_state[1], monkeypatch)
+
+
+def test_solver_check_fails_for_mutated_equality_rows(host_tmp, ee_state, monkeypatch):
+    """The check above fails on both EE states when the equality rows'
+    gradient is scaled by 1.01 in the source."""
+    mutation = ("            g = Dr * jr;\n            h = Dr;",
+                "            g = (r < L.neq ? 1.01f : 1.f) * Dr * jr;\n            h = Dr;")
+    lib = _solver_lib(host_tmp, "double", mutation, tag="_equality_gradient")
+    with pytest.raises(AssertionError):
+        _check_ee_state(lib, ee_state[1], monkeypatch)
 
 
 def test_solver_kernel_source_in_a_partial_block_equals_full_blocks(host_libs,
