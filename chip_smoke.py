@@ -56,15 +56,26 @@ Phases, each printed on its own line:
     criteria); both kernels against their plain versions on the state
     after the moves, with the weld's equality rows (neq = 6) in the solve,
     and timed; one EE control step timed;
- 9. print the build, ptxas, launch-shape and check lines again (so that
+ 9. the single env, counted: make("gym_so100_tpu/SO100TouchCube-v0",
+    dtype=float64) on the card at its registered width (640x480 pixels +
+    agent_pos, ccd manifolds, K = 32), reset(seed), 8 control steps with
+    seeded actions through the cube's landing (a step with active
+    manifold contacts); the same steps through the port on the CPU, the
+    state obs held to the larger of 1e-10 (the float64 parity tests'
+    tolerance) and twice the spread of the CPU run against itself with its
+    start moved one ulp; the float32 SO100Env (state obs) for the same
+    steps; SO100GoalEnv reset and 2 steps; neither kernel launches in the
+    phase; ms per control step (float64, float32, and the CPU's), ms per
+    640x480 render (CUDA events) and the phase's wall time, beside the card;
+10. print the build, ptxas, launch-shape and check lines again (so that
     the end of the output holds them), the kernel table as one JSON line
     (per kernel: the K = 16 row, the statistic its check bounds with that
     bound, the training phase's launches, check and times under
     "train_k32", the launches of the pixel env and pixel training under
     "pixel_env" and "train_pixels", the HER phase's launches, check and
     times under "her", and the EE phase's launches, check, times and neq
-    under "ee"), the card, then the result
-    line {"ok": true, "device": {...}}.
+    under "ee"), the single-env phase's numbers as a JSON line before it,
+    the card, then the result line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -123,6 +134,13 @@ EE_ENVS = 1024
 EE_MOVE_STEPS = 10    # 0.5 x a unit direction (z >= 0) per control step
 EE_HOLD_STEPS = 10
 EE_TRACKED = 8        # lanes held to the JAX test's criteria
+# the single-env phase: the registered SO100TouchCube-v0 at its full width
+# (640x480 pixels + agent_pos, float64 with ccd manifolds, K = 32)
+SINGLE_ID = "gym_so100_tpu/SO100TouchCube-v0"
+SINGLE_STEPS = 8      # control steps; the cube lands in the 4th
+GOAL_STEPS = 2
+SINGLE_TOL = 1e-10    # the float64 parity tests' tolerance (the contract of the floor rule)
+SINGLE_RENDER_REPS = 5
 
 
 RECAP = []   # the build, launch-shape and check lines, printed again at the end
@@ -953,6 +971,141 @@ def run_ee(card):
     return {name: dict(launches=launches[name], neq=neq, **rows[name]) for name in rows}
 
 
+def _single_obs64(env):
+    """The state obs of a single env in float64 (box, bin, ee, arm qpos),
+    from its last position stage."""
+    import torch
+
+    from gym_so100_tpu_torch.envs import core
+
+    u = env.unwrapped
+    o = core.observations(u._m, u.data, u._es.physics, u._ids)
+    return torch.cat([o["box_position"], o["bin_position"], o["ee_position"],
+                      o["qpos"]]).cpu()
+
+
+def _single_run(env, actions, seed, moved=False):
+    """Reset `env` with `seed` (its start qpos moved up one ulp in a seeded
+    half of its entries when `moved`), take the control steps `actions`;
+    returns (state obs per step (float64, CPU), host ms per step, active
+    contacts per step, whether a ccd manifold pair was among them, the last
+    step's 5-tuple)."""
+    import numpy as np
+    import torch
+
+    env.reset(seed=seed)
+    u = env.unwrapped
+    if moved:
+        q = u._es.physics.qpos
+        mask = torch.from_numpy(np.random.RandomState(seed).rand(q.shape[0]) < 0.5).to(q.device)
+        q = torch.where(mask, torch.nextafter(q, torch.full_like(q, np.inf)), q)
+        u._es = u._es.replace(physics=u._es.physics.replace(qpos=q))
+    ccd = {(p[0], p[1]) for p in u._m.pairs.ccd}
+    sync = torch.cuda.synchronize if u.device.type == "cuda" else (lambda: None)
+    obs, ms, ncon, manifold = [], [], [], False
+    for a in actions:
+        sync()
+        t0 = time.perf_counter()
+        out = env.step(a)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        con = u.data.contact
+        act = con.active.cpu()
+        ncon.append(int(act.sum()))
+        pairs = zip(con.geom1.cpu()[act].tolist(), con.geom2.cpu()[act].tolist())
+        manifold |= any(p in ccd for p in pairs)
+        obs.append(_single_obs64(env))
+    return torch.stack(obs), ms, ncon, manifold, out
+
+
+def run_single_env(card):
+    """The single-env Gymnasium-API path on the card, counted: the
+    registered SO100TouchCube-v0 in float64 (640x480 pixels, ccd manifolds,
+    K = 32) through the cube's landing, held to the same steps on the CPU
+    (the floor rule: the larger of SINGLE_TOL and twice the spread of the
+    CPU run against itself with its start moved one ulp); the float32 env; SO100GoalEnv.  Neither
+    kernel launches.  Returns the phase's numbers."""
+    import numpy as np
+    import torch
+
+    from gym_so100_tpu_torch.envs.goal_env import SO100GoalEnv
+    from gym_so100_tpu_torch.envs.gym_env import SO100Env
+    from gym_so100_tpu_torch.envs.registration import make
+    from gym_so100_tpu_torch.ops import solver_lanes
+    from gym_so100_tpu_torch.ops.collision import hull_lanes
+
+    hull_lanes.sweep_h.launches = 0
+    solver_lanes.solve_fused.launches = 0
+    actions = list(np.random.RandomState(SEED + 20).uniform(
+        -1, 1, (SINGLE_STEPS, 6)).astype(np.float32))
+
+    env = make(SINGLE_ID, dtype=torch.float64)
+    u = env.unwrapped
+    m = u._m
+    assert u.device.type == "cuda" and m.dtype == torch.float64
+    assert (u.obs_type, u.observation_height, u.observation_width) == (
+        "so100_pixels_agent_pos", 480, 640)
+    log(f"single env: {SINGLE_ID}, float64, {u.observation_height}x{u.observation_width} "
+        f"pixels + agent_pos, K {m.max_contacts}, {len(m.pairs.ccd)} ccd manifold pairs, "
+        f"{len(m.pairs.box_box)} box-box pairs", recap=True)
+    obs0, _ = env.reset(seed=SEED)
+    assert obs0["pixels"].shape == (480, 640, 3) and obs0["pixels"].dtype == np.uint8
+    obs64, ms64, ncon, manifold, (last, *_) = _single_run(env, actions, SEED)
+    assert last["pixels"].shape == (480, 640, 3) and np.isfinite(last["agent_pos"]).all()
+    assert bool(torch.isfinite(obs64).all()), "single env: obs not finite"
+    assert max(ncon) > 0 and manifold, f"single env: no manifold contact ({ncon})"
+
+    # the same steps on the CPU, and the CPU against itself moved one ulp
+    cpu = make(SINGLE_ID, dtype=torch.float64, device="cpu", obs_type="so100_state")
+    t0 = time.perf_counter()
+    obs_cpu, ms_cpu, ncon_cpu, _, _ = _single_run(cpu, actions, SEED)
+    obs_mov = _single_run(cpu, actions, SEED, moved=True)[0]
+    cpu_s = time.perf_counter() - t0
+    dev = float((obs64 - obs_cpu).abs().max())
+    spread = float((obs_mov - obs_cpu).abs().max())
+    bound = max(SINGLE_TOL, 2 * spread)
+    log(f"single env vs the CPU: max |obs - obs_cpu| {dev:.3e} over {SINGLE_STEPS} steps, "
+        f"bound {bound:.3e} (the larger of {SINGLE_TOL:g} and twice the CPU run's one-ulp "
+        f"spread {spread:.3e}); active contacts per step card {ncon}, CPU {ncon_cpu}",
+        recap=True)
+    assert ncon == ncon_cpu, "single env: the contact counts differ from the CPU's"
+    assert dev <= bound, f"single env: {dev} from the CPU, bound {bound}"
+
+    # one 640x480 render, by CUDA events
+    render_ms = cuda_ms(lambda: u._get_renderer().render(u._es.physics, 480, 640),
+                        SINGLE_RENDER_REPS)
+
+    env32 = SO100Env(task="so100_touch_cube", obs_type="so100_state")
+    assert env32._m.dtype == torch.float32 and env32.device.type == "cuda"
+    obs32, ms32, ncon32, _, _ = _single_run(env32, actions, SEED)
+    assert bool(torch.isfinite(obs32).all()), "single env float32: obs not finite"
+
+    goal = SO100GoalEnv()
+    gobs, _ = goal.reset(seed=SEED)
+    n_obs = 480 * 640 * 3 + 6
+    for a in actions[:GOAL_STEPS]:
+        gobs, reward, success, trunc, info = goal.step(a)
+        assert gobs["observation"].shape == (n_obs,) and reward in (0.0, -1.0)
+        assert np.isfinite(gobs["observation"]).all() and np.isfinite(gobs["achieved_goal"]).all()
+
+    launches = {"hull_sweep": hull_lanes.sweep_h.launches,
+                "newton_solve": solver_lanes.solve_fused.launches}
+    assert launches == {"hull_sweep": 0, "newton_solve": 0}, f"single env launched {launches}"
+    med = lambda v: float(np.median(v[1:]))
+    out = dict(
+        steps=SINGLE_STEPS, step_ms_f64=med(ms64), first_step_ms_f64=ms64[0],
+        step_ms_f32=med(ms32), first_step_ms_f32=ms32[0], step_ms_cpu_f64=med(ms_cpu),
+        render_ms_640x480=render_ms, max_abs_dev_cpu=dev, cpu_spread=spread, bound=bound,
+        ncon=ncon, ncon_f32=ncon32, launches=launches, cpu_s=cpu_s, card=card)
+    log(f"single env: ms per control step (median of steps 2-{SINGLE_STEPS}, host clock): "
+        f"float64 {out['step_ms_f64']:.1f} (first {ms64[0]:.1f}; the CPU "
+        f"{out['step_ms_cpu_f64']:.1f}), "
+        f"float32 {out['step_ms_f32']:.1f} (first {ms32[0]:.1f}); a 640x480 render "
+        f"{render_ms:.2f} ms (CUDA events over {SINGLE_RENDER_REPS}); kernel launches "
+        f"{launches}; on {card}", recap=True)
+    return out
+
+
 def main():
     try:
         import torch
@@ -1068,7 +1221,14 @@ def main():
     ee = run_ee(card)
     log(f"EE phase: {time.perf_counter() - t0:.1f} s wall time", recap=True)
 
-    # 9. results
+    # 9. the single env (the Gymnasium API), counted: neither kernel
+    t0 = time.perf_counter()
+    single = run_single_env(card)
+    single["phase_s"] = time.perf_counter() - t0
+    log(f"single-env phase: {single['phase_s']:.1f} s wall time (the CPU runs "
+        f"{single['cpu_s']:.1f} s) on {card}", recap=True)
+
+    # 10. results
     for line in RECAP:
         log(f"recap: {line}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
@@ -1078,6 +1238,7 @@ def main():
                   "check_value", "check_bound")
     ee_keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "check_value", "check_bound", "neq")
+    print(json.dumps({"single_env": single}), flush=True)
     print(json.dumps({"kernels": [
         {**{k: row[k] for k in keys},
          "train_k32": {k: train[row["name"]][k] for k in train_keys},

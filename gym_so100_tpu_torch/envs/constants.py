@@ -1,9 +1,10 @@
 """Env-layer constants and action scaling.
 
-The parts of `gym_so100_tpu/envs/constants.py` the batched envs use: control
+The parts of `gym_so100_tpu/envs/constants.py` the envs use: control
 period, joint list and ranges, the bin's interior box (the HER goal
-curriculum's late goals), the start pose, cube spawn ranges, and the
-[-1, 1] -> radians action scaling, as torch functions (batched, any device).
+curriculum's late goals), the start pose, cube spawn ranges, the [-1, 1] ->
+radians action scaling as a torch function (batched, any device), and the
+single-env adapters' host-side cube spawns (numpy).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 DT = 0.02
+FPS = 50
 N_SUBSTEPS = 10  # DT / model timestep (0.002)
 
 SO100_JOINTS = [
@@ -22,6 +24,8 @@ SO100_JOINTS = [
     "left_arm_wrist_rotate",
     "left_arm_gripper",
 ]
+
+SO100_ACTIONS = list(SO100_JOINTS)
 
 # per-joint ranges used by the action (un)normalizers
 JOINT_RANGES = np.array(
@@ -67,3 +71,17 @@ def sample_so100_box_poses(n: int, generator: torch.Generator, dtype, device):
     pose[:, 2] = BOX_Z
     pose[:, 3] = 1.0
     return pose
+
+
+def sample_so100_box_pose_np(seed=None):
+    """One cube spawn (7,) from a fresh np.random.RandomState(seed) per call
+    (the reference's stream: uniform over the x and y ranges, z fixed)."""
+    rng = np.random.RandomState(seed)
+    ranges = np.array([BOX_X_RANGE, BOX_Y_RANGE, (BOX_Z, BOX_Z)])
+    pos = rng.uniform(ranges[:, 0], ranges[:, 1])
+    return np.concatenate([pos, [1.0, 0, 0, 0]])
+
+
+def fixed_so100_box_pose_np(seed=None):
+    """The fixed cube spawn (7,)."""
+    return np.array([-0.2, 0.45, 0.05, 1.0, 0, 0, 0])

@@ -1,7 +1,9 @@
-"""Batched env core: (state, actions) -> (state, obs, reward, terminated).
+"""Env core: (state, action) -> (state, obs, reward, terminated).
 
-The port of the batched half of `gym_so100_tpu/envs/core.py`.  Every
-function takes a batch of envs (leading axis B).  Task semantics:
+The port of `gym_so100_tpu/envs/core.py`: the single-env control step of
+the Gymnasium adapter (`step`, physics leaves without an env axis) and the
+batched one (`step_batched`, leading axis B).  `reset`, `task_reward` and
+`observations` take either form.  Task semantics:
 
 * touch_gripper: any contact between `red_box` and the 8 finger-pad geoms;
 * touch_table: red_box/table contact;
@@ -10,6 +12,10 @@ function takes a batch of envs (leading axis B).  Task semantics:
   success (reward 4) when touching within 0.05;
 * TouchCubeSparse: 4 or -0.2;
 * CubeToBin ladder 1/2/2.5/3/4.
+
+The touch flags come, on the single-env path, from the K-slot contact
+buffer of the position stage (`_contact_flags`); on the batched path from
+a direct narrowphase of the 9 reward pairs (`_pair_contact_flags_batched`).
 """
 
 from __future__ import annotations
@@ -24,11 +30,14 @@ from ..ops import smooth_lanes
 from ..ops.collision import boxbox_lanes
 from . import constants as C
 
+TASKS = ("so100_touch_cube", "so100_touch_cube_sparse", "so100_cube_to_bin")
+
+
 @dataclass(frozen=True)
 class EnvState:
-    physics: State            # batched, leaves (B, ...)
-    t: torch.Tensor           # (B,) int32 steps taken this episode
-    box_pose: torch.Tensor    # (B, 7) cube spawn used at episode start
+    physics: State            # leaves (...) for one env, (B, ...) batched
+    t: torch.Tensor           # () or (B,) int32 steps taken this episode
+    box_pose: torch.Tensor    # (7,) or (B, 7) cube spawn used at episode start
 
     def replace(self, **kw) -> "EnvState":
         import dataclasses
@@ -63,15 +72,22 @@ class TaskIds:
 
 
 def reset(m: Model, box_pose: torch.Tensor) -> EnvState:
-    """Episode init for a batch: arm and ctrl to the start pose, the cube's
-    free joint to box_pose (B, 7)."""
+    """Episode init: arm and ctrl to the start pose, the cube's free joint to
+    box_pose, (7,) for one env or (B, 7) for a batch."""
     dtype, dev = box_pose.dtype, box_pose.device
-    B = box_pose.shape[0]
     start = torch.as_tensor(C.SO100_START_ARM_POSE, dtype=dtype, device=dev)
+    if box_pose.dim() == 1:
+        qpos = m.qpos0.to(dtype).clone()
+        qpos[:6] = start
+        qpos[-7:] = box_pose
+        return EnvState(physics=fwd.make_state(m, qpos=qpos, ctrl=start, dtype=dtype),
+                        t=torch.zeros((), dtype=torch.int32, device=dev),
+                        box_pose=box_pose)
+    B = box_pose.shape[0]
+    s1 = fwd.make_state(m, dtype=dtype)
     qpos = m.qpos0.to(dtype).repeat(B, 1)
     qpos[:, :6] = start
     qpos[:, -7:] = box_pose
-    s1 = fwd.make_state(m, dtype=dtype)
     physics = State(
         qpos=qpos,
         qvel=torch.zeros(B, m.nv, dtype=dtype, device=dev),
@@ -85,6 +101,20 @@ def reset(m: Model, box_pose: torch.Tensor) -> EnvState:
         t=torch.zeros(B, dtype=torch.int32, device=dev),
         box_pose=box_pose,
     )
+
+
+def _contact_flags(m: Model, d: Data, ids: TaskIds):
+    """touch_gripper / touch_table (each () bool) from one env's K-slot
+    contact buffer."""
+    con = d.contact
+    g1, g2 = con.geom1.long(), con.geom2.long()
+    pad = torch.zeros(m.ngeom, dtype=torch.bool, device=g1.device)
+    pad[list(ids.pad_geoms)] = True
+    cube, tbl = ids.cube_geom, ids.table_geom
+    touch_gripper = (con.active & ((pad[g1] & (g2 == cube)) | (pad[g2] & (g1 == cube)))).any()
+    touch_table = (con.active & (((g1 == cube) & (g2 == tbl))
+                                 | ((g1 == tbl) & (g2 == cube)))).any()
+    return touch_gripper, touch_table
 
 
 def _pair_contact_flags_batched(m: Model, d: Data, ids: TaskIds):
@@ -123,9 +153,17 @@ def _bin_aabb(d: Data, ids: TaskIds):
     return center - off, center + top
 
 
-def task_reward(m: Model, d: Data, ids: TaskIds, task: str, flags):
-    """Per-step reward and success (each (B,)) for `task`; flags =
-    (touch_gripper, touch_table) from `_pair_contact_flags_batched`."""
+def task_reward(m: Model, d: Data, ids: TaskIds, task: str, flags=None):
+    """Per-step reward and success for `task`: each (B,) for a batched Data,
+    with flags = (touch_gripper, touch_table) from
+    `_pair_contact_flags_batched`; each () for one env's Data, with the
+    flags read from its contact buffer when not given."""
+    if d.site_xpos.dim() == 2:
+        if flags is None:
+            flags = _contact_flags(m, d, ids)
+        r, ok = task_reward(m, d.replace(site_xpos=d.site_xpos[None]), ids, task,
+                            tuple(f[None] for f in flags))
+        return r[0], ok[0]
     cube_pos = d.site_xpos[:, ids.cube_site]
     if task == "so100_cube_to_bin":
         # the reference reads the cube position as float32
@@ -147,7 +185,7 @@ def task_reward(m: Model, d: Data, ids: TaskIds, task: str, flags):
 
     if task == "so100_touch_cube_sparse":
         success = touch_gripper & (dist < 0.05)
-        return torch.where(success, 4.0, -0.2).to(dtype), success
+        return torch.where(success, 4.0, torch.full_like(dist, -0.2)), success
 
     if task == "so100_cube_to_bin":
         bin_lo, bin_hi = _bin_aabb(d, ids)
@@ -172,15 +210,28 @@ def task_reward(m: Model, d: Data, ids: TaskIds, task: str, flags):
 
 
 def observations(m: Model, d: Data, s: State, ids: TaskIds):
-    """Raw state obs features, each batched."""
+    """Raw state obs features (one env, or each batched)."""
     return dict(
-        qpos=s.qpos[:, :6],
-        qvel=s.qvel[:, :6],
-        env_state=s.qpos[:, 6:],
-        box_position=d.site_xpos[:, ids.cube_site],
-        bin_position=d.site_xpos[:, ids.bin_site],
-        ee_position=d.site_xpos[:, ids.ee_site],
+        qpos=s.qpos[..., :6],
+        qvel=s.qvel[..., :6],
+        env_state=s.qpos[..., 6:],
+        box_position=d.site_xpos[..., ids.cube_site, :],
+        bin_position=d.site_xpos[..., ids.bin_site, :],
+        ee_position=d.site_xpos[..., ids.ee_site, :],
     )
+
+
+def step(m: Model, es: EnvState, action, ids: TaskIds, task: str):
+    """One env's control step: unnormalize the action -> 10 substeps ->
+    position stage (kinematics and contacts) -> obs and reward.
+    terminated is reward == 4; truncation is the caller's."""
+    act6 = C.unnormalize_so100(torch.as_tensor(action)[:6].to(es.physics.qpos.dtype))
+    s = fwd.n_steps(m, es.physics.replace(ctrl=act6), C.N_SUBSTEPS)
+    d = fwd.position_stage(m, s)
+    reward, _ = task_reward(m, d, ids, task)
+    obs = observations(m, d, s, ids)
+    es2 = EnvState(physics=s, t=es.t + 1, box_pose=es.box_pose)
+    return es2, obs, reward, reward == 4.0, d
 
 
 def step_batched(m: Model, es: EnvState, actions, ids: TaskIds, task: str):

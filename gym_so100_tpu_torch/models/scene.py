@@ -10,7 +10,8 @@ match every leaf with its JAX counterpart (and `convert.model_from_numpy`
 can bridge one into the other).
 
 `State` is the dynamic state carried across steps, `Data` the per-step
-derived quantities, and `ContactLanes` the selected contact buffer of the
+derived quantities, `Contact` the selected contact buffer batch-first
+(fields (K, ...), or (B, K, ...) batched) and `ContactLanes` the one of the
 batched path in batch-last form (fields (K, B)).  Each has `.to(device,
 dtype)`, which moves every tensor and casts the floating ones.
 """
@@ -233,6 +234,29 @@ class State(_TensorFields):
 
 
 @dataclass(frozen=True)
+class Contact(_TensorFields):
+    """Fixed-size selected contact buffer (K = model.max_contacts), batch-
+    first: fields (K, ...) for one env, (B, K, ...) for a batch."""
+
+    dist: torch.Tensor        # (K,) signed distance (negative = penetrating)
+    pos: torch.Tensor         # (K, 3) world midpoint
+    frame: torch.Tensor       # (K, 3, 3) rows: normal, tangent1, tangent2
+    friction: torch.Tensor    # (K, 3) slide, torsion, roll
+    solref: torch.Tensor      # (K, 2)
+    solimp: torch.Tensor      # (K, 5)
+    geom1: torch.Tensor       # (K,) int
+    geom2: torch.Tensor       # (K,) int
+    condim: torch.Tensor      # (K,) int
+    active: torch.Tensor      # (K,) bool
+    # per-contact statics of the batched narrowphase; None on the single-env
+    # path, where constraint.make_efc derives them from geom1/geom2
+    dof_dmask: Optional[torch.Tensor] = None   # (K, nv) Jacobian sign mask
+    invw_diag: Optional[torch.Tensor] = None   # (K,) body_invweight0 sum
+    # active narrowphase candidates before the deepest-K cull
+    ncand: Optional[torch.Tensor] = None       # () int32, or (B,)
+
+
+@dataclass(frozen=True)
 class ContactLanes(_TensorFields):
     """Selected contact buffer in batch-last form (fields (K, B)).
 
@@ -259,7 +283,8 @@ class ContactLanes(_TensorFields):
 
 @dataclass(frozen=True)
 class Data(_TensorFields):
-    """Per-step derived quantities (batched: leading env axis)."""
+    """Per-step derived quantities: no env axis on the single-env path,
+    a leading one (B, ...) on the batched path."""
 
     xpos: Optional[torch.Tensor] = None         # (B, NB, 3)
     xquat: Optional[torch.Tensor] = None        # (B, NB, 4)
@@ -269,9 +294,10 @@ class Data(_TensorFields):
     site_xmat: Optional[torch.Tensor] = None    # (B, NS, 3, 3)
     geom_xpos: Optional[torch.Tensor] = None    # (B, NG, 3)
     geom_xmat: Optional[torch.Tensor] = None    # (B, NG, 3, 3)
-    subtree_com: Optional[torch.Tensor] = None  # (B, 1, 3) root row only
+    subtree_com: Optional[torch.Tensor] = None  # (NB, 3); batched (B, 1, 3) root row
     cdof: Optional[torch.Tensor] = None         # (B, NV, 6)
     qM: Optional[torch.Tensor] = None           # (B, NV, NV)
+    qLD: Optional[torch.Tensor] = None          # (NV, NV) Cholesky factor of qM
     qfrc_bias: Optional[torch.Tensor] = None
     qfrc_passive: Optional[torch.Tensor] = None
     qfrc_actuator: Optional[torch.Tensor] = None
@@ -279,7 +305,7 @@ class Data(_TensorFields):
     qacc_smooth: Optional[torch.Tensor] = None
     qacc: Optional[torch.Tensor] = None
     qfrc_constraint: Optional[torch.Tensor] = None
-    contact: Optional[ContactLanes] = None
+    contact: Optional[Contact | ContactLanes] = None
     solver_niter: Optional[torch.Tensor] = None  # (B,)
     ncon: Optional[torch.Tensor] = None          # (B,)
 

@@ -1,7 +1,14 @@
-"""Constraint model helpers: impedance, stiffness/damping, dof masks.
+"""Constraint assembly: impedance, stiffness/damping, dof masks, and the
+single-env constraint rows.
 
-The parts of `gym_so100_tpu/ops/constraint.py` that the lanes assembly
-(`constraint_lanes.py`) uses.  Conventions follow MuJoCo's constraint model
+The port of `gym_so100_tpu/ops/constraint.py`: the helpers the lanes
+assembly (`constraint_lanes.py`) uses, and `make_efc`, the single-env
+engine's row assembly, with the fixed row layout
+
+  [ equality | dof friction loss | joint limits | contacts (K slots x CDIM) ]
+
+in which every slot always exists and inactive rows are masked (D = 0).
+Conventions follow MuJoCo's constraint model
 (mj_makeImpedance): sigmoid impedance from solimp=(d0, dwidth, width, mid,
 power) with endpoints clamped to [0.0001, 0.9999]; solref=(tc, zeta) > 0 gives
 K = 1/(dmax^2 tc^2 zeta^2), B = 2/(dmax tc), negative solref is direct
@@ -9,21 +16,54 @@ stiffness/damping; aref = -B*vel - K*imp*pos; R = max(MINVAL,
 (1-imp)/imp * diagApprox), D = 1/R.
 
 `equality_rows` assembles the weld and joint equality rows (the EE and
-Panda scenes) for a batch of envs.
+Panda scenes) for a batch of envs.  Elliptic cones: friction row i gets D_i
+= D_normal impratio (mu_i / mu_0)^2, and the solver sees a circular cone
+with mu = mu_0 / sqrt(impratio) in the scaled coordinates u_i = jar_i mu_i
+sqrt(impratio) / mu_0.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
-from ..models.scene import JNT_FREE, Data, Model, State
+from ..models.scene import JNT_FREE, JNT_HINGE, Contact, Data, Model, State
 from . import quat
 
 MINVAL = 1e-15
 MINIMP = 0.0001
 MAXIMP = 0.9999
 CDIM = 4  # contact rows per slot (normal + 2 tangent + torsion; condim<=4)
+
+
+@dataclass(frozen=True)
+class Efc:
+    """Assembled constraint rows of one env (static shapes)."""
+
+    J: torch.Tensor           # (NE, nv)
+    aref: torch.Tensor        # (NE,)
+    D: torch.Tensor           # (NE,) inverse regularization (0 = inactive row)
+    R: torch.Tensor           # (NE,)
+    pos: torch.Tensor         # (NE,) constraint violation (contacts: dist)
+    floss: torch.Tensor       # (NE,) frictionloss (friction rows only)
+    # scalar block [equality | frictionloss | limits]: a row with neither
+    # mask set is an equality row
+    is_floss: torch.Tensor    # (NE,) bool
+    is_limit: torch.Tensor    # (NE,) bool
+    # contact rows [neq + nf + nl :] in K blocks of CDIM
+    con_mu: torch.Tensor      # (K,) circular-cone friction mu0 / sqrt(impratio)
+    con_uscale: torch.Tensor  # (K, CDIM) jar -> u scaling (row 0 = 1)
+    con_active: torch.Tensor  # (K,) bool
+    con_Dn: torch.Tensor      # (K,) normal-row D
+    neq: int = 0              # equality rows (6 per weld, 1 per joint coupling)
+    nf: int = 0
+    nl: int = 0
+
+    def replace(self, **kw) -> "Efc":
+        return dataclasses.replace(self, **kw)
 
 
 def impedance_comps(d0, dw, width, mid, power, pos):
@@ -164,3 +204,135 @@ def equality_rows(m: Model, d: Data, s: State):
         blocks.append((J, aref, 1.0 / R, R, res))
 
     return blocks
+
+
+def point_jacobians_single(m: Model, d: Data, body_ids, points):
+    """One env's translational and rotational Jacobians (each (N, 3, nv)) of
+    world `points` (N, 3) attached to bodies `body_ids` (N,) (a tensor)."""
+    masks = torch.as_tensor(_body_dof_masks(m), dtype=d.cdof.dtype, device=d.cdof.device)
+    mk = masks[body_ids]                                    # (N, nv)
+    ang = d.cdof[:, :3]                                     # (nv, 3)
+    lin = d.cdof[:, 3:]
+    offset = points - d.subtree_com[0][None]                # (N, 3)
+    cross = quat.cross(ang[None], offset[:, None])          # (N, nv, 3)
+    Jt = (lin[None] + cross) * mk[:, :, None]
+    Jr = ang[None].expand_as(cross) * mk[:, :, None]
+    return Jt.transpose(1, 2), Jr.transpose(1, 2)
+
+
+def make_efc(m: Model, d: Data, s: State, con: Contact) -> Efc:
+    """One env's constraint rows from its Data (no env axis) and contact
+    buffer; the per-contact body masks and diagonal come from geom1/geom2."""
+    dtype, dev = s.qpos.dtype, s.qpos.device
+    nv = m.nv
+    rows_J, rows_aref, rows_D, rows_R = [], [], [], []
+    rows_pos, rows_floss, rows_isf, rows_isl = [], [], [], []
+    zeros = lambda n: torch.zeros(n, dtype=dtype, device=dev)
+    flags = lambda n, v: torch.full((n,), v, dtype=torch.bool, device=dev)
+
+    def add(J, aref, D, R, pos, floss, isf, isl):
+        n = J.shape[0]
+        rows_J.append(J)
+        rows_aref.append(aref)
+        rows_D.append(D)
+        rows_R.append(R)
+        rows_pos.append(pos)
+        rows_floss.append(floss)
+        rows_isf.append(flags(n, isf))
+        rows_isl.append(flags(n, isl))
+
+    # equality rows (weld site pairs, joint couplings): the batched helper
+    # on a batch of one
+    if len(m.eq_site1) or len(m.eq_jnt_q1):
+        db = Data(site_xpos=d.site_xpos[None], site_xmat=d.site_xmat[None],
+                  cdof=d.cdof[None], subtree_com=d.subtree_com[None, :1])
+        for J, aref, D, R, pos in equality_rows(m, db, s.index(None)):
+            add(J[0], aref[0], D[0], R[0], pos[0], zeros(J.shape[1]), False, False)
+
+    # dof friction loss rows
+    nf = len(m.fl_dofs)
+    if nf:
+        ids = list(m.fl_dofs)
+        J = zeros((nf, nv))
+        J[torch.arange(nf), ids] = 1.0
+        imp = impedance(m.dof_solimp[ids], zeros(nf))
+        K, B = kb(m.dof_solref[ids], m.dof_solimp[ids][:, 1])
+        R = torch.clamp((1 - imp) / imp * m.dof_invweight0[ids], min=MINVAL)
+        add(J, -B * s.qvel[ids], 1.0 / R, R, zeros(nf), m.dof_frictionloss[ids], True, False)
+
+    # joint limit rows (limited hinges)
+    lim = [j for j in range(len(m.jnt_type)) if m.jnt_limited[j] and m.jnt_type[j] == JNT_HINGE]
+    nl = len(lim)
+    if nl:
+        qadr = [m.jnt_qposadr[j] for j in lim]
+        vadr = [m.jnt_dofadr[j] for j in lim]
+        q = s.qpos[qadr]
+        dist_lo = q - m.jnt_range[lim, 0]
+        dist_hi = m.jnt_range[lim, 1] - q
+        use_lo = dist_lo < dist_hi
+        dist = torch.where(use_lo, dist_lo, dist_hi)
+        sign = torch.where(use_lo, 1.0, -1.0).to(dtype)
+        J = zeros((nl, nv))
+        J[torch.arange(nl), vadr] = sign
+        imp = impedance(m.jnt_solimp[lim], dist)
+        K, B = kb(m.jnt_solref[lim], m.jnt_solimp[lim][:, 1])
+        aref = -B * (sign * s.qvel[vadr]) - K * imp * dist
+        R = torch.clamp((1 - imp) / imp * m.dof_invweight0[vadr], min=MINVAL)
+        add(J, aref, torch.where(dist < 0, 1.0 / R, 0.0), R, dist, zeros(nl), False, True)
+
+    # contact rows: K slots x CDIM
+    Kslots = con.dist.shape[0]
+    gb = torch.tensor(m.geom_bodyid, dtype=torch.long, device=dev)
+    b1 = gb[con.geom1.long()]
+    b2 = gb[con.geom2.long()]
+    Jt1, Jr1 = point_jacobians_single(m, d, b1, con.pos)
+    Jt2, Jr2 = point_jacobians_single(m, d, b2, con.pos)
+    dJt = Jt2 - Jt1                                        # (K, 3, nv)
+    dJr = Jr2 - Jr1
+    frame = con.frame                                      # rows n, t1, t2
+    proj = lambda f, Jx: torch.einsum("ki,kiv->kv", f, Jx)
+    Jcon = torch.stack([proj(frame[:, 0], dJt), proj(frame[:, 1], dJt),
+                        proj(frame[:, 2], dJt), proj(frame[:, 0], dJr)], 1)  # (K, CDIM, nv)
+
+    imp = impedance(con.solimp, con.dist)
+    Kk, Bk = kb(con.solref, con.solimp[:, 1])
+    vel = torch.einsum("krv,v->kr", Jcon, s.qvel)
+    aref_con = torch.cat([(-Bk * vel[:, 0] - Kk * imp * con.dist)[:, None],
+                          -Bk[:, None] * vel[:, 1:]], 1)
+    binv = m.body_invweight0[:, 0]
+    Rn = torch.clamp((1 - imp) / imp * (binv[b1] + binv[b2]), min=MINVAL)
+    Dn = 1.0 / Rn
+    ip = m.impratio
+    mu0 = con.friction[:, 0]
+    # friction coefficient per friction row [slide, slide, torsion]; the
+    # torsion row is off for condim 3
+    mus = torch.stack([con.friction[:, 0], con.friction[:, 0],
+                       torch.where(con.condim >= 4, con.friction[:, 1], 0.0)], 1)
+    Df = Dn[:, None] * ip * (mus / torch.clamp(mu0[:, None], min=MINVAL)) ** 2
+    active = con.active & (con.dist < 0)
+    Dcon = torch.cat([Dn[:, None], Df], 1) * active[:, None]
+    sip = torch.sqrt(torch.tensor(ip, dtype=dtype, device=dev))
+    uscale = torch.cat([torch.ones(Kslots, 1, dtype=dtype, device=dev),
+                        mus * sip / torch.clamp(mu0[:, None], min=MINVAL)], 1)
+    add(Jcon.reshape(Kslots * CDIM, nv), aref_con.reshape(-1), Dcon.reshape(-1),
+        Rn[:, None].expand(Kslots, CDIM).reshape(-1),
+        torch.cat([con.dist[:, None], zeros((Kslots, CDIM - 1))], 1).reshape(-1),
+        zeros(Kslots * CDIM), False, False)
+
+    return Efc(
+        J=torch.cat(rows_J),
+        aref=torch.cat(rows_aref),
+        D=torch.cat(rows_D),
+        R=torch.cat(rows_R),
+        pos=torch.cat(rows_pos),
+        floss=torch.cat(rows_floss),
+        is_floss=torch.cat(rows_isf),
+        is_limit=torch.cat(rows_isl),
+        con_mu=mu0 / sip,
+        con_uscale=uscale,
+        con_active=active,
+        con_Dn=Dn * active,
+        neq=len(m.eq_site1) * 6 + len(m.eq_jnt_q1),
+        nf=nf,
+        nl=nl,
+    )

@@ -1,11 +1,16 @@
-"""Batched forward dynamics + integration: the mj_step equivalent.
+"""Forward dynamics + integration: the mj_step equivalent.
 
-The port of the batched half of `gym_so100_tpu/ops/forward.py`.  One
-substep runs smooth dynamics (`smooth_lanes`), collision
-(`narrowphase.collide_batched_lanes`, with the hull-sweep kernel),
-constraint assembly (`constraint_lanes`), the Newton solve (`solver_lanes`,
-with the solver kernel) and semi-implicit Euler.  Ten substeps make one
-0.02 s control step.
+The port of `gym_so100_tpu/ops/forward.py`.  One substep runs smooth
+dynamics, collision, constraint assembly, the Newton solve and
+semi-implicit Euler; ten substeps make one 0.02 s control step.
+
+* The single-env engine (`forward`, `step`, `n_steps`, `position_stage`),
+  which the Gymnasium adapter runs: `smooth`, `narrowphase.collide`,
+  `constraint.make_efc`, `solver.solve`, on State and Data leaves with no
+  env axis.
+* The batched engine (`forward_batched`, `step_batched`, `n_steps_batched`):
+  `smooth_lanes`, `narrowphase.collide_batched_lanes` (with the hull-sweep
+  kernel), `constraint_lanes` and `solver_lanes` (with the solver kernel).
 """
 
 from __future__ import annotations
@@ -13,8 +18,42 @@ from __future__ import annotations
 import torch
 
 from ..models.scene import Data, Model, State
-from . import constraint_lanes, smooth_lanes, solver_lanes
+from . import constraint, constraint_lanes, smooth, smooth_lanes, solver, solver_lanes
 from .collision import narrowphase
+
+
+def forward(m: Model, s: State) -> Data:
+    """One env's forward dynamics: Data with the contacts, qacc (after the
+    constraint solve), qfrc_constraint and solver_niter."""
+    d = smooth.forward_smooth(m, s)
+    con = narrowphase.collide(m, d)
+    d = d.replace(contact=con)
+    efc = constraint.make_efc(m, d, s, con)
+    qacc, qfrc, _, niter = solver.solve(m, d, efc, s.qacc_warmstart)
+    return d.replace(qacc=qacc, qfrc_constraint=qfrc, solver_niter=niter)
+
+
+def step(m: Model, s: State) -> tuple[State, Data]:
+    """One physics substep of one env (forward, then semi-implicit Euler)."""
+    d = forward(m, s)
+    s2 = smooth.integrate(m, s, d.qacc)
+    return s2.replace(qacc_warmstart=d.qacc), d
+
+
+def n_steps(m: Model, s: State, n: int) -> State:
+    """n physics substeps of one env (a 0.02 s control step when n = 10);
+    the final State only (`position_stage` refreshes kinematics and
+    contacts for it)."""
+    for _ in range(n):
+        s, _ = step(m, s)
+    return s
+
+
+def position_stage(m: Model, s: State) -> Data:
+    """Kinematics and contacts of the current state, no solve (mj_step1):
+    what the env layer reads after the substeps."""
+    d = smooth.kinematics(m, s)
+    return d.replace(contact=narrowphase.collide(m, d))
 
 
 def forward_batched(m: Model, s: State) -> Data:

@@ -1,8 +1,7 @@
 """Quaternion utilities, batch-first (MuJoCo conventions: quats are (w, x, y, z)).
 
 The port of `gym_so100_tpu/ops/quat.py` (the functions the renderer, the
-weld rows and the Cartesian env need):
-every function takes (..., 4) quaternions and (..., 3) vectors, broadcast
+weld rows, the Cartesian env and the single-env engine need): every function takes (..., 4) quaternions and (..., 3) vectors, broadcast
 over the leading axes, and uses the same arithmetic as the JAX module.
 """
 
@@ -86,3 +85,31 @@ def from_mat(R: torch.Tensor) -> torch.Tensor:
         torch.where(((d0 >= d1) & (d0 >= d2))[..., None], cand(0, 1, 2),
                     torch.where((d1 >= d2)[..., None], cand(1, 2, 0), cand(2, 0, 1))))
     return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Cross product of (..., 3) tensors, written out per component."""
+    ax, ay, az = a.unbind(-1)
+    bx, by, bz = b.unbind(-1)
+    return torch.stack([ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx], dim=-1)
+
+
+def from_axis_angle(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion from rotation axis (..., 3) and angle (...,)."""
+    half = 0.5 * angle
+    s = torch.sin(half)
+    return torch.cat([torch.cos(half)[..., None], axis * s[..., None]], dim=-1)
+
+
+def integrate(q: torch.Tensor, omega: torch.Tensor, dt) -> torch.Tensor:
+    """Rotate q by the body-local angular velocity omega over dt with the
+    exact exponential map, q * exp(omega dt / 2) (mju_quatIntegrate)."""
+    angle = torch.linalg.vector_norm(omega, dim=-1)
+    safe = torch.where(angle > 0, angle, 1.0)
+    return mul(q, from_axis_angle(omega / safe[..., None], angle * dt))
+
+
+def normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Quaternion(s) scaled to unit length."""
+    n = torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    return q / torch.clamp(n, min=eps)

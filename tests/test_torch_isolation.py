@@ -12,7 +12,9 @@ port there.  Two guards:
   steps through the plain PyTorch paths, renders a pixel observation,
   takes one SAC update, imports every agents module, both training
   scripts and the hull kernel A/B script, and takes one HER goal-env step and one Cartesian (mocap-weld)
-  env step.
+  env step, then builds the single-env Gymnasium-API adapter (`SO100Env`,
+  float64, state obs, on the CPU), takes one step with it and imports
+  `envs.registration` and `envs.goal_env`'s `SO100GoalEnv`.
 """
 
 import ast
@@ -134,6 +136,16 @@ m_ee, _ = build_model(ee_env.EE_XML, max_contacts=8, device="cpu")
 ee = ee_env.CartesianBatchedEnv(m_ee, num_envs=2, device="cpu")
 es, obs, reward, term, trunc, info = ee.step(ee.reset(seed=0), torch.zeros(2, 4))
 assert obs.shape == (2, 15) and bool(torch.isfinite(info["ee_err"]).all())
+from gym_so100_tpu_torch.envs import gym_env, registration
+from gym_so100_tpu_torch.envs.goal_env import SO100GoalEnv
+
+senv = gym_env.SO100Env(task="so100_touch_cube", obs_type="so100_state",
+                        dtype=torch.float64, device="cpu")
+obs, info = senv.reset(seed=0)
+obs, reward, term, trunc, info = senv.step(senv.action_space.sample())
+assert obs.shape == (15,) and isinstance(reward, float) and trunc is False
+assert set(registration.REGISTRY) == {"gym_so100_tpu/SO100TouchCube-v0",
+    "gym_so100_tpu/SO100TouchCubeSparse-v0", "gym_so100_tpu/SO100CubeToBin-v0"}
 loaded = sorted(n for n in sys.modules if n.split(".")[0] in FORBIDDEN)
 assert not loaded, loaded
 print("ISOLATED OK")
