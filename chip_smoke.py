@@ -67,15 +67,44 @@ Phases, each printed on its own line:
     steps; SO100GoalEnv reset and 2 steps; neither kernel launches in the
     phase; ms per control step (float64, float32, and the CPU's), ms per
     640x480 render (CUDA events) and the phase's wall time, beside the card;
-10. print the build, ptxas, launch-shape and check lines again (so that
+10. multi-GPU, the training phase's configuration at DIST_ENVS = 256 envs
+    and 2 warm-up + 2 learning env-batch steps: Trainer(group=...) on 2
+    ranks that share the card (processes started with
+    torch.multiprocessing, gloo, since NCCL refuses two ranks on one
+    device; they load phase 1's library), then on 1 rank over NCCL; per
+    rank, counted: 10 launches of each kernel per control step, both
+    kernels against their plain versions on its shard at touchdown,
+    parameters bit-equal across ranks; the 2 ranks' warm-up transitions
+    against the NCCL run's (actions equal, obs within DIST_OBS_TOL); the
+    sharded env-steps/s; then on each run's trained learner
+    SAC.update(group=...) on the rank's rows of a whole-batch sample
+    against the full update on that batch (parameters within
+    DIST_UPDATE_TOL, losses within DIST_LOSS_RTOL, ranks bit-equal, the
+    update without the average outside the bound), and both timed (host
+    clock, DIST_UPDATE_REPS updates);
+11. the Panda EE scene (float32, K = 24) on the card: the mocap target on
+    the ee for 4 control steps, then 3 cm along +x for 8: finite, the
+    fingers coupled (|q1 - q2| < 5e-3), the ee moving > 1.5 cm along +x;
+    held to the same steps on the CPU (PANDA_TOL); the bound's witnesses:
+    it lies above twice the card's own spread under a one-ulp move of the
+    start and below the card's run with the finger-coupling equality
+    dropped (a planted fault), and the first PANDA64_STEPS in float64 hold
+    the card to the CPU as phase 9 does; neither kernel launches;
+12. profiling.trace around one 4096-env control step: the trace holds both
+    kernels (10 launches each) and the five stage ranges; the summed
+    device time of its kernels, copies and sets against the step's wall
+    time (the device-busy share);
+13. print the build, ptxas, launch-shape and check lines again (so that
     the end of the output holds them), the kernel table as one JSON line
     (per kernel: the K = 16 row, the statistic its check bounds with that
     bound, the training phase's launches, check and times under
     "train_k32", the launches of the pixel env and pixel training under
     "pixel_env" and "train_pixels", the HER phase's launches, check and
     times under "her", and the EE phase's launches, check, times and neq
-    under "ee"), the single-env phase's numbers as a JSON line before it,
-    the card, then the result line {"ok": true, "device": {...}}.
+    under "ee", and the multi-GPU phase's per-rank launches and times
+    under "dist"), the single-env, Panda and trace phases' numbers as a
+    JSON line before it, the card, then the result line
+    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -141,6 +170,46 @@ SINGLE_STEPS = 8      # control steps; the cube lands in the 4th
 GOAL_STEPS = 2
 SINGLE_TOL = 1e-10    # the float64 parity tests' tolerance (the contract of the floor rule)
 SINGLE_RENDER_REPS = 5
+# the multi-GPU phase: the training phase's configuration (so100_touch_cube,
+# K = 32, utd 8, full-width SAC) at 256 envs over 2 ranks that share the
+# card (gloo: NCCL refuses two ranks on one device), then one rank over NCCL
+DIST_ENVS = 256
+DIST_RANKS = 2
+DIST_WARMUP = 2
+DIST_STEPS = 4        # env-batch steps: 2 warm-up, 2 learning
+# the ranks' warm-up transitions against the one-rank run's: the same
+# spawns, actions and float32 operations, on 128 instead of 256 envs, where
+# torch's reductions and cuBLAS may pick another order per batch width, so
+# rows can part by a few ulps per operation; two control steps (20
+# substeps of position servos, before the cube lands) keep that well under
+# 1e-5, while a wrong row order or spawn moves obs by 1e-2 or more
+DIST_OBS_TOL = 1e-4
+# SAC.update(group=...) on each rank's rows of a sampled batch against the
+# full update on it, after the run's 16 updates: the batch means round in
+# another order, which moves an Adam step of lr = 1e-4 by an ulp or two of
+# the parameters (|p| < 1, ulp <= 6e-8); a rank that skipped the average
+# would move them by ~1e-5; the losses, differences of close Q values,
+# keep a few ulps relative to their small differences
+DIST_UPDATE_TOL = 1e-6
+DIST_LOSS_RTOL = 1e-5
+DIST_UPDATE_REPS = 10
+# the Panda phase: the EE scene in float32 from its "home" keyframe, the
+# mocap target on the ee for PANDA_HOLD control steps, then 3 cm along +x
+PANDA_K = 24
+PANDA_HOLD = 4
+PANDA_MOVE = 8
+# the card's float32 steps against the CPU's: the float32 single-env Newton
+# solve stops at its float32 tolerance within 10 iterations, and another
+# rounding order (the card's reductions and libm) moves where it stops
+# (9.4e-4 rad after the 12 steps on an NVIDIA H100 80GB HBM3, 700 W); the
+# phase shows that the bound lies above twice the card's own one-ulp
+# spread and below a planted fault (the finger coupling dropped)
+PANDA_TOL = 5e-3
+# the float64 witness, held as phase 9 holds the SO100 (the larger of
+# 1e-10 and twice the CPU run's one-ulp spread), over the first control
+# step only: from the second on, the float64 run's own one-ulp spread
+# grows to millirads
+PANDA64_STEPS = 1
 
 
 RECAP = []   # the build, launch-shape and check lines, printed again at the end
@@ -1106,6 +1175,409 @@ def run_single_env(card):
     return out
 
 
+def _frac_in_contact(env, es):
+    return float(solver_problem(env, es)[2].con_active.any(0).float().mean())
+
+
+def _dist_rank(rank, world, port, backend, out_dir, num_envs):
+    """One rank of the multi-GPU phase (started by torch.multiprocessing):
+    the process group, the trainer on its shard, counted; both kernels
+    against their plain versions on its shard at touchdown; its results in
+    out_dir/rank<rank>.json and its warm-up transitions in .pt."""
+    import torch
+
+    from gym_so100_tpu_torch import kernels
+    from gym_so100_tpu_torch.agents.sac import SACConfig
+    from gym_so100_tpu_torch.agents.train import TrainConfig, Trainer
+    from gym_so100_tpu_torch.ops import solver_lanes
+    from gym_so100_tpu_torch.ops.collision import hull_lanes
+    from gym_so100_tpu_torch.parallel import dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    assert dist.init_distributed(f"localhost:{port}", world, rank, device="cuda",
+                                 backend=backend)
+    group = dist.env_mesh()
+    kernels.library()
+    assert kernels.build_info.get("cached"), "a rank rebuilt the kernels"
+    device = dist.rank_device("cuda")
+    tcfg = TrainConfig(task=TASK, num_envs=num_envs, total_steps=DIST_STEPS * num_envs,
+                       learning_starts=DIST_WARMUP * num_envs, utd=TRAIN_UTD, log_every=1,
+                       max_contacts=TRAIN_K)
+    trainer = Trainer(None, tcfg, SACConfig(), device=device, group=group)
+    env = trainer.env
+    lines, stamps = [], []
+
+    def progress(line):      # rank 0 only; a log line reads the device
+        stamps.append(time.perf_counter())
+        lines.append(line)
+
+    hull_lanes.sweep_h.launches = 0
+    solver_lanes.solve_fused.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = trainer.train(seed=SEED, progress=progress)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"hull_sweep": hull_lanes.sweep_h.launches,
+                "newton_solve": solver_lanes.solve_fused.launches}
+    for name, n in launches.items():
+        assert n == 10 * DIST_STEPS, f"rank {rank}: {name} {n} launches"
+    assert st.step == (DIST_STEPS - DIST_WARMUP) * TRAIN_UTD
+    assert st.buffer.size == DIST_STEPS * num_envs
+    flat = torch.cat([p.detach().reshape(-1) for p in (
+        *st.actor.parameters(), *st.critic.parameters(), *st.target_critic.parameters(),
+        st.log_alpha.reshape(1))])
+    every = dist.all_gather_env(flat[None], group)
+    params_equal = all(torch.equal(every[0], every[r]) for r in range(world))
+    assert params_equal, f"rank {rank}: parameters differ across ranks"
+    update = _sharded_update(trainer.sac, st, group)
+    # both kernels on this rank's shard at touchdown: every rank steps on
+    # (whole-batch actions, its rows) until each has half its envs in contact
+    es = trainer.env_state
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    steps = 0
+    while dist.any_across(torch.tensor(_frac_in_contact(env, es) < 0.5, device=device),
+                          group):
+        assert steps < TOUCHDOWN_MAX, f"rank {rank}: no touchdown"
+        acts = torch.rand(num_envs, 6, generator=gen, device=device) * 2 - 1
+        es = env.step(es, acts[env.rows])[0]
+        steps += 1
+    rows = {"hull_sweep": check_hull(env, es, timed=True),
+            "newton_solve": check_solver(env, es, timed=True)}
+    n = DIST_WARMUP * num_envs
+    torch.save({k: getattr(st.buffer, k)[:n].cpu() for k in ("obs", "act", "rew", "next_obs",
+                                                             "done")},
+               Path(out_dir) / f"rank{rank}.pt")
+    out = dict(rank=rank, world=world, backend=torch.distributed.get_backend(group),
+               device=str(device), shard=env.num_envs, launches=launches,
+               env_steps_per_s=DIST_STEPS * num_envs / dt, seconds=dt,
+               # after the first env-batch step, which holds the set-up
+               steady_env_steps_per_s=(len(stamps) - 1) * num_envs
+               / (stamps[-1] - stamps[0]) if len(stamps) > 1 else None,
+               touchdown_steps=steps, params_equal=params_equal, update=update,
+               lines=lines, kernels={k: {f: v[f] for f in (
+                   "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+                   for k, v in rows.items()})
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+    torch.distributed.destroy_process_group()
+
+
+def _sharded_update(sac, st, group):
+    """SAC.update(group=...) on this rank's rows of a whole-batch sample
+    against the full update on the whole batch, each on a copy of the
+    trained learner (the same draws: the copies start from one generator
+    state), and the update without the average as a planted fault; then
+    both timed over DIST_UPDATE_REPS updates by the host clock (the
+    collectives included).  Returns the deviations and times."""
+    import torch
+
+    from gym_so100_tpu_torch.parallel import dist
+
+    saved = sac.state_dict(st)
+    n = sac.cfg.batch_size
+    rows = dist.env_rows(n, group)
+
+    def params(s):
+        return torch.cat([p.detach().reshape(-1) for p in (
+            *s.actor.parameters(), *s.critic.parameters(), *s.target_critic.parameters(),
+            s.log_alpha.reshape(1))])
+
+    def sharded(s, average=True):
+        batch = dist.shard_env(s.buffer.sample(n, s.generator), group)
+        if average:
+            return sac.update(s, batch, group=group)
+        return sac.update(s, batch, noise=[sac._noise(s, n)[rows] for _ in range(2)])
+
+    full = sac.load_state_dict(saved)
+    full, m_full = sac.update(full, full.buffer.sample(n, full.generator))
+    part, m_part = sharded(sac.load_state_dict(saved))
+    fault = sharded(sac.load_state_dict(saved), average=False)[0]
+    dev = float((params(part) - params(full)).abs().max())
+    fault_dev = float((params(fault) - params(full)).abs().max())
+    loss_dev = max(abs(float(m_part[k]) / float(m_full[k]) - 1)
+                   for k in ("critic_loss", "actor_loss", "entropy"))
+    every = dist.all_gather_env(params(part)[None], group)
+    assert all(torch.equal(every[0], e) for e in every), "sharded update: ranks differ"
+    assert dev <= DIST_UPDATE_TOL and loss_dev <= DIST_LOSS_RTOL, (
+        f"sharded update: parameters {dev}, losses {loss_dev} from the full update")
+    assert dist.world(group)[1] == 1 or fault_dev > DIST_UPDATE_TOL, fault_dev
+    ms = {}
+    for tag, s, shard in (("full", full, False), ("sharded", part, True)):
+        batches = [s.buffer.sample(n, s.generator) for _ in range(DIST_UPDATE_REPS)]
+        if shard:
+            batches = [dist.shard_env(b, group) for b in batches]
+        torch.cuda.synchronize()
+        torch.distributed.barrier(group)
+        t0 = time.perf_counter()
+        for b in batches:
+            sac.update(s, b, group=group if shard else None)
+        torch.cuda.synchronize()
+        ms[tag] = (time.perf_counter() - t0) * 1e3 / DIST_UPDATE_REPS
+    return dict(batch=n, rows=n // dist.world(group)[1], max_abs_dev=dev,
+                loss_rel_dev=loss_dev, fault_max_abs_dev=fault_dev, full_ms=ms["full"],
+                sharded_ms=ms["sharded"])
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_dist(card):
+    """The multi-GPU phase: DIST_RANKS ranks over gloo on the one card, then
+    one rank over NCCL, each a process of its own, at DIST_ENVS envs of the
+    training configuration.  Returns {kernel: the dist row}."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_",
+                                     dir=Path(__file__).resolve().parent) as tmp:
+        runs = {}
+        for tag, world, backend in (("gloo", DIST_RANKS, "gloo"), ("nccl", 1, None)):
+            out = Path(tmp) / tag
+            out.mkdir()
+            t0 = time.perf_counter()
+            mp.start_processes(_dist_rank, args=(world, _free_port(), backend, str(out),
+                                                 DIST_ENVS),
+                               nprocs=world, join=True, start_method="spawn")
+            runs[tag] = dict(
+                wall=time.perf_counter() - t0,
+                ranks=[json.loads((out / f"rank{r}.json").read_text()) for r in range(world)],
+                warm=[torch.load(out / f"rank{r}.pt") for r in range(world)])
+        gloo, nccl = runs["gloo"], runs["nccl"]
+        assert [r["backend"] for r in gloo["ranks"]] == ["gloo"] * DIST_RANKS
+        assert nccl["ranks"][0]["backend"] == "nccl"
+        ref = nccl["warm"][0]
+        devs = {}
+        for r, warm in enumerate(gloo["warm"]):
+            assert torch.equal(warm["act"], ref["act"]), f"rank {r}: warm-up actions differ"
+            assert torch.equal(warm["done"], ref["done"]), f"rank {r}: done flags differ"
+            devs[r] = max(float((warm[k] - ref[k]).abs().max())
+                          for k in ("obs", "next_obs", "rew"))
+        assert torch.equal(gloo["warm"][0]["obs"], gloo["warm"][1]["obs"])
+    for tag, run in runs.items():
+        for rk in run["ranks"]:
+            log(f"dist {tag}: rank {rk['rank']}/{rk['world']} on {rk['device']}, "
+                f"{rk['shard']} of {DIST_ENVS} envs, launches {rk['launches']} "
+                f"({DIST_STEPS} env-batch steps), parameters bit-equal across ranks "
+                f"{rk['params_equal']}, touchdown {rk['touchdown_steps']} steps after the "
+                f"run; kernels on its shard: " + ", ".join(
+                    f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, bound "
+                    f"{v['bound_ms']:.4f}, max abs err {v['max_abs_err']:.3g})"
+                    for k, v in rk["kernels"].items()), recap=True)
+        r0 = run["ranks"][0]
+        log(f"dist {tag}: SAC.update(group=...) on each rank's {r0['update']['rows']} of "
+            f"{r0['update']['batch']} rows against the full update: parameters max |difference| "
+            + ", ".join(f"{rk['update']['max_abs_dev']:.3g}" for rk in run["ranks"])
+            + ", losses relative "
+            + ", ".join(f"{rk['update']['loss_rel_dev']:.3g}" for rk in run["ranks"])
+            + f" (bounds {DIST_UPDATE_TOL:g}, {DIST_LOSS_RTOL:g}), without the average "
+            f"(planted fault) "
+            + ", ".join(f"{rk['update']['fault_max_abs_dev']:.3g}" for rk in run["ranks"])
+            + "; ranks bit-equal; ms per update (host clock, "
+            f"{DIST_UPDATE_REPS}): full " + ", ".join(
+                f"{rk['update']['full_ms']:.3f}" for rk in run["ranks"]) + ", sharded "
+            + ", ".join(f"{rk['update']['sharded_ms']:.3f}" for rk in run["ranks"])
+            + f"; on {card}", recap=True)
+        log(f"dist {tag}: {r0['steady_env_steps_per_s']:.1f} env-steps/s over "
+            f"{len(run['ranks'])} rank(s) ({DIST_ENVS} envs, K {TRAIN_K}, utd {TRAIN_UTD}; "
+            f"rank 0's clock over env-batch steps 2-{DIST_STEPS}), "
+            f"{r0['env_steps_per_s']:.1f} over all {DIST_STEPS} with the first's set-up; "
+            f"phase part {run['wall']:.1f} s with start-up; on {card}", recap=True)
+    log(f"dist: the {DIST_RANKS} gloo ranks' warm-up transitions against the one-rank "
+        f"NCCL run's ({DIST_ENVS} envs): actions and done flags equal, max |obs, next_obs, "
+        f"rew difference| per rank {devs} (bound {DIST_OBS_TOL}); the ranks' gathered "
+        f"buffers equal each other", recap=True)
+    assert max(devs.values()) <= DIST_OBS_TOL, devs
+    return {name: dict(
+        ranks=DIST_RANKS, backend="gloo", shard=DIST_ENVS // DIST_RANKS,
+        launches=[rk["launches"][name] for rk in gloo["ranks"]],
+        ms=[rk["kernels"][name]["ms"] for rk in gloo["ranks"]],
+        plain_ms=[rk["kernels"][name]["plain_ms"] for rk in gloo["ranks"]],
+        bound_ms=[rk["kernels"][name]["bound_ms"] for rk in gloo["ranks"]],
+        max_abs_err=[rk["kernels"][name]["max_abs_err"] for rk in gloo["ranks"]],
+        env_steps_per_s=gloo["ranks"][0]["steady_env_steps_per_s"],
+        update_ms={tag: {k: [rk["update"][k] for rk in run["ranks"]]
+                         for k in ("full_ms", "sharded_ms")} for tag, run in runs.items()},
+        nccl_world1=dict(launches=nccl["ranks"][0]["launches"][name],
+                         ms=nccl["ranks"][0]["kernels"][name]["ms"],
+                         env_steps_per_s=nccl["ranks"][0]["steady_env_steps_per_s"]))
+        for name in ("hull_sweep", "newton_solve")}
+
+
+def _panda_run(m, aux, hold=PANDA_HOLD, move=PANDA_MOVE, ulp=False):
+    """The Panda scene from "home" (with `ulp`, its nonzero qpos moved one
+    ulp up) with the mocap target on the ee, then `hold` control steps,
+    then the target 3 cm along +x for `move` steps.  Returns (qpos per
+    step (float64, CPU), ee x after the hold (None without a move) and at
+    the end, finger gap, ms per step)."""
+    import torch
+
+    from gym_so100_tpu_torch.ops import forward as fwd
+    from gym_so100_tpu_torch.ops import smooth
+
+    kq, kc = aux["keyframes"]["home"]
+    ee = m.site_id("ee_site")
+    kin = lambda s: smooth.kinematics(m, s).site_xpos[ee]
+    s = fwd.make_state(m, qpos=kq, ctrl=kc)
+    if ulp:
+        s = s.replace(qpos=torch.where(s.qpos != 0, torch.nextafter(
+            s.qpos, torch.full_like(s.qpos, float("inf"))), s.qpos))
+    s = s.replace(mocap_pos=kin(s)[None].clone())
+    sync = torch.cuda.synchronize if m.device.type == "cuda" else (lambda: None)
+    qs, ms, held = [], [], None
+    for i in range(hold + move):
+        if i == hold:
+            held = float(kin(s)[0])
+            s = s.replace(mocap_pos=s.mocap_pos + torch.tensor(
+                [[0.03, 0.0, 0.0]], dtype=s.mocap_pos.dtype, device=m.device))
+        sync()
+        t0 = time.perf_counter()
+        s = fwd.n_steps(m, s, 10)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        qs.append(s.qpos.double().cpu())
+    q1 = s.qpos[m.jnt_qposadr[m.joint_id("finger_joint1")]]
+    q2 = s.qpos[m.jnt_qposadr[m.joint_id("finger_joint2")]]
+    return torch.stack(qs), held, float(kin(s)[0]), float((q1 - q2).abs()), ms
+
+
+def run_panda(card):
+    """The Panda EE scene (float32, K = PANDA_K) on the card: finite, the
+    fingers coupled, the ee following the target's move along +x; held to
+    the same steps on the CPU (qpos within PANDA_TOL, the ee's move within
+    1 mm).  The bound's witnesses: it lies above twice the card's own
+    spread under a one-ulp move of the start and below the card's run with
+    a planted fault (the finger-coupling equality dropped, over the hold
+    steps); and the first PANDA64_STEPS in float64 hold the card to the
+    CPU as phase 9 does.  Neither kernel launches (nv = 15: the single-env
+    engine)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from gym_so100_tpu_torch.models.builder import PANDA_XML, build_model
+    from gym_so100_tpu_torch.ops import solver_lanes
+    from gym_so100_tpu_torch.ops.collision import hull_lanes
+
+    hull_lanes.sweep_h.launches = 0
+    solver_lanes.solve_fused.launches = 0
+    m, aux = build_model(PANDA_XML, max_contacts=PANDA_K, device="cuda")
+    log(f"Panda: nq {m.nq} nv {m.nv} nu {m.nu}, {m.ngeom} geoms, {len(m.eq_site1)} weld and "
+        f"{len(m.eq_jnt_q1)} joint equality, K {PANDA_K}, float32; {PANDA_HOLD} hold + "
+        f"{PANDA_MOVE} move control steps", recap=True)
+    qs, held, end, gap, ms = _panda_run(m, aux)
+    assert bool(torch.isfinite(qs).all()), "Panda: qpos not finite"
+    t0 = time.perf_counter()
+    q_cpu, held_cpu, end_cpu, _, ms_cpu = _panda_run(
+        *build_model(PANDA_XML, max_contacts=PANDA_K, device="cpu"))
+    cpu_s = time.perf_counter() - t0
+    dev = float((qs - q_cpu).abs().max())
+    dx_dev = abs((end - held) - (end_cpu - held_cpu))
+    launches = {"hull_sweep": hull_lanes.sweep_h.launches,
+                "newton_solve": solver_lanes.solve_fused.launches}
+    med = lambda v: float(np.median(v[1:]))
+    log(f"Panda: ee moved {end - held:+.4f} m along x after the 3 cm move (CPU "
+        f"{end_cpu - held_cpu:+.4f}), finger gap |q1 - q2| {gap:.2e} (bound 5e-3); card vs "
+        f"CPU max |qpos difference| {dev:.3e} (bound {PANDA_TOL:g}); ms per control step "
+        f"{med(ms):.1f} (card), {med(ms_cpu):.1f} (CPU), median of steps 2-{len(ms)}; CPU "
+        f"run {cpu_s:.1f} s; launches {launches}; on {card}", recap=True)
+    assert gap < 5e-3, "Panda: the fingers decoupled"
+    assert end - held > 0.015, "Panda: the ee did not follow the target along +x"
+    assert dev <= PANDA_TOL and dx_dev <= 1e-3, f"Panda: {dev}, {dx_dev} from the CPU"
+    assert launches == {"hull_sweep": 0, "newton_solve": 0}, launches
+
+    # the witnesses of PANDA_TOL: the card against itself, and a planted
+    # fault in a Panda-only part, the finger-coupling equality gone
+    spread = float((_panda_run(m, aux, ulp=True)[0] - qs).abs().max())
+    faulty = dataclasses.replace(m, eq_jnt_q1=(), eq_jnt_q2=(), eq_jnt_v1=(), eq_jnt_v2=())
+    fault_dev = float((_panda_run(faulty, aux, PANDA_HOLD, 0)[0]
+                       - q_cpu[:PANDA_HOLD]).abs().max())
+    # float64, card against CPU
+    m64 = build_model(PANDA_XML, max_contacts=PANDA_K, device="cuda", dtype=torch.float64)
+    c64 = build_model(PANDA_XML, max_contacts=PANDA_K, device="cpu", dtype=torch.float64)
+    q64, q64_cpu, q64_ulp = (_panda_run(*mm, PANDA64_STEPS, 0, ulp=u)[0]
+                             for mm, u in ((m64, False), (c64, False), (c64, True)))
+    dev64 = float((q64 - q64_cpu).abs().max())
+    bound64 = max(1e-10, 2 * float((q64_ulp - q64_cpu).abs().max()))
+    log(f"Panda witnesses: the card's own one-ulp spread over the {len(ms)} steps "
+        f"{spread:.3e}, the card with the finger coupling dropped vs the CPU's sound run "
+        f"{fault_dev:.3e} over the {PANDA_HOLD} hold steps: the bound {PANDA_TOL:g} lies "
+        f"above twice the one and below the other; float64, {PANDA64_STEPS} control step, "
+        f"card vs CPU max |qpos difference| {dev64:.3e} (bound {bound64:.3g}); on {card}",
+        recap=True)
+    assert 2 * spread <= PANDA_TOL < fault_dev, (spread, fault_dev)
+    assert dev64 <= bound64, f"Panda float64: {dev64} from the CPU"
+    return dict(step_ms=med(ms), step_ms_cpu=med(ms_cpu), ee_dx=end - held, finger_gap=gap,
+                max_abs_dev_cpu=dev, bound=PANDA_TOL, one_ulp_spread=spread,
+                fault_max_abs_dev_cpu=fault_dev, float64_max_abs_dev_cpu=dev64,
+                float64_bound=bound64)
+
+
+def run_trace(env, card):
+    """One control step of the 4096-env main path under profiling.trace:
+    the trace holds both kernels and the five stage annotations; the summed
+    device time of its kernels, copies and sets against the step's wall
+    time, traced and untraced."""
+    import tempfile
+
+    import torch
+
+    from gym_so100_tpu_torch.profiling import trace
+
+    gen = torch.Generator(device=env.device).manual_seed(SEED + 13)
+    es = env.reset(seed=SEED + 14)
+    acts = [torch.rand(env.num_envs, 6, generator=gen, device=env.device) * 2 - 1
+            for _ in range(3)]
+    es = env.step(es, acts[0])[0]            # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    es = env.step(es, acts[1])[0]
+    torch.cuda.synchronize()
+    plain_wall = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_",
+                                     dir=Path(__file__).resolve().parent) as tmp:
+        with trace(tmp, device="cuda"):
+            t0 = time.perf_counter()
+            env.step(es, acts[2])
+            torch.cuda.synchronize()
+            traced_wall = (time.perf_counter() - t0) * 1e3
+        path = Path(tmp) / "trace.json"
+        size = path.stat().st_size
+        events = json.loads(path.read_text())["traceEvents"]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    names = {e.get("name", "") for e in events}
+    kernels = {k: sum(k in e.get("name", "") for e in device)
+               for k in ("hull_sweep_kernel", "newton_solve_kernel")}
+    stages = {k: sum(e.get("name") == k and e.get("cat") == "user_annotation"
+                     for e in events)
+              for k in ("smooth", "collide", "efc", "solve", "integrate")}
+    busy_ms = sum(float(e.get("dur", 0)) for e in device) / 1e3
+    top = {}
+    for e in device:
+        top[e["name"][:60]] = top.get(e["name"][:60], 0.0) + float(e.get("dur", 0)) / 1e3
+    top = sorted(top.items(), key=lambda kv: -kv[1])[:5]
+    log(f"trace: one {env.num_envs}-env control step, {size / 2**20:.1f} MiB, "
+        f"{len(events)} events, {len(device)} device events; kernel launches in it "
+        f"{kernels}; stage ranges {stages}; summed device time {busy_ms:.2f} ms against "
+        f"the traced step's wall {traced_wall:.1f} ms ({busy_ms / traced_wall:.4f}) and "
+        f"an untraced step's {plain_wall:.1f} ms ({busy_ms / plain_wall:.4f}); largest "
+        f"device items (ms): " + ", ".join(f"{n} {t:.2f}" for n, t in top)
+        + f"; on {card}", recap=True)
+    assert kernels == {"hull_sweep_kernel": 10, "newton_solve_kernel": 10}, kernels
+    assert all(n == 10 for n in stages.values()), stages
+    assert len(names) > 10
+    return dict(device_ms=busy_ms, traced_wall_ms=traced_wall, wall_ms=plain_wall,
+                busy_share=busy_ms / plain_wall, trace_mib=size / 2**20, events=len(events))
+
+
 def main():
     try:
         import torch
@@ -1228,7 +1700,22 @@ def main():
     log(f"single-env phase: {single['phase_s']:.1f} s wall time (the CPU runs "
         f"{single['cpu_s']:.1f} s) on {card}", recap=True)
 
-    # 10. results
+    # 10. multi-GPU: the trainer on 2 ranks (gloo) and on 1 rank (NCCL)
+    t0 = time.perf_counter()
+    dist_rows = run_dist(card)
+    log(f"multi-GPU phase: {time.perf_counter() - t0:.1f} s wall time", recap=True)
+
+    # 11. the Panda EE scene
+    t0 = time.perf_counter()
+    panda = run_panda(card)
+    log(f"Panda phase: {time.perf_counter() - t0:.1f} s wall time", recap=True)
+
+    # 12. a profiler trace of one 4096-env control step
+    t0 = time.perf_counter()
+    traced = run_trace(env, card)
+    log(f"trace phase: {time.perf_counter() - t0:.1f} s wall time", recap=True)
+
+    # 13. results
     for line in RECAP:
         log(f"recap: {line}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
@@ -1238,14 +1725,15 @@ def main():
                   "check_value", "check_bound")
     ee_keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "check_value", "check_bound", "neq")
-    print(json.dumps({"single_env": single}), flush=True)
+    print(json.dumps({"single_env": single, "panda": panda, "trace": traced}), flush=True)
     print(json.dumps({"kernels": [
         {**{k: row[k] for k in keys},
          "train_k32": {k: train[row["name"]][k] for k in train_keys},
          "pixel_env": {"launches": pixel_env[row["name"]]},
          "train_pixels": {"launches": train_pixels[row["name"]]},
          "her": {k: her[row["name"]][k] for k in train_keys},
-         "ee": {k: ee[row["name"]][k] for k in ee_keys}}
+         "ee": {k: ee[row["name"]][k] for k in ee_keys},
+         "dist": dist_rows[row["name"]]}
         for row in rows]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -438,19 +438,38 @@ class SAC:
 
     # -- learning ------------------------------------------------------------
 
-    def update(self, st: SACState, batch, noise=None):
+    def update(self, st: SACState, batch, noise=None, group=None):
         """One gradient step on `batch` (dict of obs, act, rew, next_obs,
         done): critic, then actor against the updated critic, then alpha,
         then the Polyak target update.  `noise` = (eps_next, eps_actor), the
         two standard normal draws (batch, act_dim) of the target and actor
         samples; drawn from the state's generator when not given.  Returns
-        (st, metrics), the metrics as 0-dim device tensors."""
+        (st, metrics), the metrics as 0-dim device tensors.
+
+        With a process group `group`, `batch` is this rank's rows of a batch
+        sharded over the group's ranks in rank order, and `st` is the same
+        on every rank: the draws are made for the whole batch and each rank
+        takes its rows (`noise`, when given, is this rank's rows), and the
+        gradients and the metrics are averaged across ranks.  The update
+        then equals the one on the concatenated batch, and every rank ends
+        with the same state."""
         cfg = self.cfg
-        eps_next, eps_actor = noise if noise is not None else (
-            self._noise(st, batch["act"].shape[0]) for _ in range(2))
+        average = lambda tensors: None
+        if group is not None:
+            from ..parallel import dist
+
+            average = lambda tensors: dist.all_reduce_mean_(tensors, group)
+        if noise is None:
+            n = batch["act"].shape[0]
+            whole, rows = n, slice(0, n)
+            if group is not None:
+                whole = n * dist.world(group)[1]
+                rows = dist.env_rows(whole, group)
+            noise = [self._noise(st, whole)[rows] for _ in range(2)]
+        eps_next, eps_actor = noise
         for opt in (st.actor_opt, st.critic_opt, st.alpha_opt):
-            for group in opt.param_groups:
-                group["lr"] = cfg.lr * st.lr_scale
+            for param_group in opt.param_groups:
+                param_group["lr"] = cfg.lr * st.lr_scale
         nobs = self._norm_obs(st.normalizer, batch["obs"])
         alpha = st.log_alpha.detach().exp()
 
@@ -465,6 +484,7 @@ class SAC:
         closs = ((q1 - target) ** 2 + (q2 - target) ** 2).mean()
         st.critic_opt.zero_grad(set_to_none=True)
         closs.backward()
+        average([p.grad for p in st.critic.parameters() if p.grad is not None])
         st.critic_opt.step()
 
         # the actor's gradient only: the critic's .grad stays as its own step
@@ -473,7 +493,9 @@ class SAC:
         q1, q2 = st.critic(nobs, act)
         aloss = (alpha * logp - torch.minimum(q1, q2)).mean()
         params = list(st.actor.parameters())
-        for p, g in zip(params, torch.autograd.grad(aloss, params)):
+        grads = torch.autograd.grad(aloss, params)
+        average(grads)
+        for p, g in zip(params, grads):
             p.grad = g
         st.actor_opt.step()
 
@@ -481,14 +503,17 @@ class SAC:
         lloss = -(st.log_alpha.exp() * (logp + st.target_entropy)).mean()
         st.alpha_opt.zero_grad(set_to_none=True)
         lloss.backward()
+        average([st.log_alpha.grad])
         st.alpha_opt.step()
 
         with torch.no_grad():
             for t, p in zip(st.target_critic.parameters(), st.critic.parameters()):
                 t.copy_((1 - cfg.tau) * t + cfg.tau * p)
         st.step += 1
-        metrics = dict(critic_loss=closs.detach(), actor_loss=aloss.detach(),
-                       alpha=st.log_alpha.detach().exp(), entropy=-logp.mean())
+        losses = torch.stack([closs.detach(), aloss.detach(), -logp.mean()])
+        average([losses])
+        metrics = dict(critic_loss=losses[0], actor_loss=losses[1],
+                       alpha=st.log_alpha.detach().exp(), entropy=losses[2])
         return st, metrics
 
     def ingest(self, st: SACState, obs, act, rew, next_obs, done):
@@ -532,9 +557,12 @@ class SAC:
         st.target_critic.load_state_dict(d["target_critic"])
         with torch.no_grad():
             st.log_alpha.copy_(d["log_alpha"])
-        st.actor_opt.load_state_dict(d["actor_opt"])
-        st.critic_opt.load_state_dict(d["critic_opt"])
-        st.alpha_opt.load_state_dict(d["alpha_opt"])
+        # copies: an optimizer keeps the step counters it is given and
+        # counts them on in place, so two states loaded from one dict would
+        # share them
+        for opt, name in ((st.actor_opt, "actor_opt"), (st.critic_opt, "critic_opt"),
+                          (st.alpha_opt, "alpha_opt")):
+            opt.load_state_dict(copy.deepcopy(d[name]))
         for n in ReplayBuffer.FIELDS:
             _map_obs(lambda a, v: a.copy_(v), getattr(st.buffer, n), d["buffer"][n])
         st.buffer.ptr, st.buffer.size = int(d["buffer"]["ptr"]), int(d["buffer"]["size"])

@@ -1,4 +1,5 @@
-"""SAC training loop: the batched env and the learner on one device.
+"""SAC training loop: the batched env and the learner on one device, or
+on every rank of a process group.
 
 The port of `gym_so100_tpu/agents/train.py`, on state or pixel
 observations: random actions until `learning_starts`, then one policy
@@ -7,6 +8,24 @@ reference's stage-based entropy/LR curriculum; deterministic evaluation,
 with an mp4 of env 0 when `video_dir` is set; and checkpoints of the whole
 learner state (`torch.save`, with the same `sac_config.json` sidecar as
 the JAX trainer).
+
+On a process group (`Trainer(group=...)`, JAX's `mesh=`) the env batch is
+sharded and the learner replicated: each rank steps `num_envs / world`
+envs (`BatchedEnv.shard`), each env-batch step's transitions are
+all-gathered in env order, and every rank holds the whole buffer, makes
+the same draws and takes the same updates.  A W-rank run therefore equals
+the one-rank run with the same seed.  Only rank 0 logs, evaluates and
+writes checkpoints; every rank can restore one.
+
+Every rank takes the full update on the whole sampled batch, as every
+device of JAX's mesh does, not `SAC.update(group=...)` on its rows of it.
+A sharded update's batch means round in another order, so its float32
+parameters would part from the one-rank run's from the first update on;
+and an update is a few ms of an env-batch step of seconds, so splitting
+it would save little and add three all-reduces per update (through host
+memory when gloo puts several ranks on one card: 14.9 ms against 8.0-8.8
+ms for the full update, two ranks on one NVIDIA H100 80GB HBM3 at 700 W).
+`chip_smoke.py` phase 10 checks and times both on the card.
 
 Transitions never leave the device.  Beyond the one host sync per control
 step of `BatchedEnv.step` (its any(done) test), the loop reads the device
@@ -24,6 +43,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..parallel import dist
 from ..parallel.batch import BatchedEnv
 from .sac import SAC, SACConfig, SACState
 
@@ -72,11 +92,15 @@ class Trainer:
     """SAC trainer on the port's BatchedEnv.  `model` defaults to the SO100
     scene with `tcfg.max_contacts` contact slots; `device` defaults to the
     GPU and raises without one (device="cpu" runs the plain PyTorch
-    paths).  `env_state` holds the env batch's state after the last
-    env-batch step of `train`."""
+    paths).  `env_state` holds the env batch's state (this rank's rows)
+    after the last env-batch step of `train`.
+
+    `group`, a process group (`parallel.dist.env_mesh()`), runs the trainer
+    on each of its ranks: `tcfg.num_envs` is the whole batch, of which each
+    rank steps its rows on its own device."""
 
     def __init__(self, model=None, tcfg: TrainConfig | None = None,
-                 sac_cfg: SACConfig | None = None, device="cuda"):
+                 sac_cfg: SACConfig | None = None, device="cuda", group=None):
         self.tcfg = tcfg = tcfg or TrainConfig()
         self.device = resolve_device(device)
         self.env = BatchedEnv(
@@ -85,6 +109,11 @@ class Trainer:
             obs_height=tcfg.obs_height, obs_width=tcfg.obs_width,
             render_aux=tcfg.render_aux,
         )
+        self.group = group
+        self.rank = 0
+        if group is not None:
+            self.env.shard(group)
+            self.rank = dist.world(group)[0]
         if sac_cfg is None:
             sac_cfg = (SACConfig(obs_dim=6, pixels=(tcfg.obs_height, tcfg.obs_width))
                        if tcfg.obs == "pixels_agent_pos" else SACConfig())
@@ -95,27 +124,39 @@ class Trainer:
         self._cur_stage = None
         self._best_eval = -float("inf")
 
+    def _gather(self, tree):
+        """The whole batch's rows of this rank's env-leading tensors."""
+        return tree if self.group is None else dist.all_gather_env(tree, self.group)
+
+    def _env_step(self, es, acts):
+        """Step this rank's envs with their rows of the whole batch's
+        actions; returns (es2, whole-batch next_obs, rew, term, final_obs,
+        ncon)."""
+        es2, next_obs, rew, term, trunc, info = self.env.step(es, acts[self.env.rows])
+        return (es2, *self._gather((next_obs, rew, term, info["final_obs"],
+                                    info["ncon"])))
+
     def _rollout_warmup(self, st: SACState, es, obs):
         """One env-batch step with uniform random actions (before
         learning_starts)."""
         acts = torch.rand(self.tcfg.num_envs, self.sac.cfg.act_dim,
                           generator=st.generator, device=self.device) * 2 - 1
-        es2, next_obs, rew, term, trunc, info = self.env.step(es, acts)
+        es2, next_obs, rew, term, final_obs, ncon = self._env_step(es, acts)
         # boundary transitions bootstrap from the episode's true terminal obs
-        self.sac.ingest(st, obs, acts, rew, info["final_obs"], term)
-        return es2, next_obs, rew, info["ncon"].max()
+        self.sac.ingest(st, obs, acts, rew, final_obs, term)
+        return es2, next_obs, rew, ncon.max()
 
     def _rollout(self, st: SACState, es, obs):
         """One env-batch step with the policy, then `utd` gradient updates."""
         acts = self.sac.act(st, obs)
-        es2, next_obs, rew, term, trunc, info = self.env.step(es, acts)
-        st, metrics = self.sac.train_step(st, obs, acts, rew, info["final_obs"], term)
+        es2, next_obs, rew, term, final_obs, ncon = self._env_step(es, acts)
+        st, metrics = self.sac.train_step(st, obs, acts, rew, final_obs, term)
         for _ in range(self.tcfg.utd - 1):
             batch = st.buffer.sample(self.sac.cfg.batch_size, st.generator)
             st, metrics = self.sac.update(st, batch)
         # contact-buffer saturation watch: active narrowphase candidates;
         # values at or above the model's K mean contacts were dropped
-        return es2, next_obs, rew, dict(metrics, ncon_max=info["ncon"].max())
+        return es2, next_obs, rew, dict(metrics, ncon_max=ncon.max())
 
     def _apply_stage(self, st: SACState, env_steps):
         """Set (target_entropy, lr_scale) for the stage containing env_steps."""
@@ -141,12 +182,17 @@ class Trainer:
         names continue.  (The JAX trainer derives that count from the
         gradient-update count, `step // utd`, which leaves out the warm-up
         steps; storing it repairs that.)  A resumed run draws its fresh
-        episodes from the restored env generator."""
+        episodes from the restored env generator.  On a process group the
+        learner starts from rank 0's networks and normalizer."""
         t = self.tcfg
         resumed = init_state is not None
         st = init_state if resumed else self.sac.init(seed)
+        if self.group is not None:
+            dist.replicate([*st.actor.parameters(), *st.critic.parameters(),
+                            *st.target_critic.parameters(), st.log_alpha,
+                            *st.normalizer.tensors().values()], self.group)
         es = self.env.reset(seed=None if resumed else seed + 1)
-        obs = self.env.observe(es)
+        obs = self._gather(self.env.observe(es))
         steps = start_steps = st.batch_steps
         t0 = time.perf_counter()
         rew_acc = []
@@ -162,6 +208,8 @@ class Trainer:
             steps += 1
             st.batch_steps = steps
             self.env_state = es
+            if self.rank != 0:      # only rank 0 logs, saves and evaluates
+                continue
             ncon_peak = torch.maximum(ncon_peak, ncon)
             rew_acc.append(rew)
             if steps % t.log_every == 0:

@@ -1,10 +1,11 @@
 """Env-layer constants and action scaling.
 
-The parts of `gym_so100_tpu/envs/constants.py` the envs use: control
-period, joint list and ranges, the bin's interior box (the HER goal
-curriculum's late goals), the start pose, cube spawn ranges, the [-1, 1] ->
-radians action scaling as a torch function (batched, any device), and the
-single-env adapters' host-side cube spawns (numpy).
+The port of `gym_so100_tpu/envs/constants.py`: control period, joint list
+and ranges, the bin's interior box (the HER goal curriculum's late goals),
+the start pose, cube spawn ranges, the [-1, 1] <-> radians action scaling
+and the gym <-> LeRobot unit conversions (each on torch tensors, batched
+and on any device, or on numpy arrays and lists), and the single-env
+adapters' host-side cube spawns (numpy).
 """
 
 from __future__ import annotations
@@ -50,11 +51,45 @@ BOX_Y_RANGE = (0.3, 0.6)
 BOX_Z = 0.05
 
 
-def unnormalize_so100(action: torch.Tensor) -> torch.Tensor:
+def _ranges(x, table):
+    """(x as a tensor or float array, the table's columns in its dtype and
+    on its device, the clip function)."""
+    if isinstance(x, torch.Tensor):
+        col = lambda c: torch.as_tensor(np.asarray(c), dtype=x.dtype, device=x.device)
+        return x, col(table[:, 0]), col(table[:, 1]), torch.clamp
+    x = np.asarray(x)
+    if not np.issubdtype(x.dtype, np.floating):
+        x = x.astype(np.float64)
+    return x, table[:, 0].astype(x.dtype), table[:, 1].astype(x.dtype), np.clip
+
+
+# LeRobot's units: +-100 for the arm joints, 0..100 for the gripper
+LEROBOT_RANGES = np.array([[-100.0, 100.0]] * 5 + [[0.0, 100.0]])
+
+
+def unnormalize_so100(action):
     """[-1, 1]^6 -> radians, clipped to the joint ranges."""
-    lo = torch.as_tensor(JOINT_RANGES[:, 0], dtype=action.dtype, device=action.device)
-    hi = torch.as_tensor(JOINT_RANGES[:, 1], dtype=action.dtype, device=action.device)
-    return torch.clamp((action + 1.0) / 2.0 * (hi - lo) + lo, lo, hi)
+    a, lo, hi, clip = _ranges(action, JOINT_RANGES)
+    return clip((a + 1.0) / 2.0 * (hi - lo) + lo, lo, hi)
+
+
+def normalize_so100(q):
+    """radians -> [-1, 1]^6, clipped."""
+    q, lo, hi, clip = _ranges(q, JOINT_RANGES)
+    return clip((q - lo) / (hi - lo) * 2.0 - 1.0, -1.0, 1.0)
+
+
+def normalize_gym_so100_to_lerobot(action):
+    """radians -> LeRobot units, clipped."""
+    a, lo, hi, clip = _ranges(action, JOINT_RANGES)
+    _, tmin, tmax, _ = _ranges(a, LEROBOT_RANGES)
+    return clip((a - lo) / (hi - lo) * (tmax - tmin) + tmin, tmin, tmax)
+
+
+def normalize_lerobot_to_gym_so100(action):
+    """LeRobot units -> [-1, 1] normalized actions, clipped."""
+    a, tmin, tmax, clip = _ranges(action, LEROBOT_RANGES)
+    return clip((a - tmin) / (tmax - tmin) * 2.0 - 1.0, -1.0, 1.0)
 
 
 def sample_so100_box_poses(n: int, generator: torch.Generator, dtype, device):

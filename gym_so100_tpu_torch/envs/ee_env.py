@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -107,8 +108,12 @@ class CartesianBatchedEnv:
         if box_pose is None:
             box_pose = C.sample_so100_box_poses(self.num_envs, self.generator,
                                                 self.m.dtype, self.device)
-        es = core.reset(self.m, torch.as_tensor(box_pose, dtype=self.m.dtype,
-                                                device=self.device))
+        elif isinstance(box_pose, torch.Tensor):
+            box_pose = box_pose.to(dtype=self.m.dtype, device=self.device)
+        else:   # a copy: numpy views of JAX arrays are read-only
+            box_pose = torch.tensor(np.asarray(box_pose), dtype=self.m.dtype,
+                                    device=self.device)
+        es = core.reset(self.m, box_pose)
         s = es.physics
         d = smooth_lanes.kinematics(self.m, s)
         s = s.replace(

@@ -37,6 +37,11 @@ ASSETS_XML = str(
     Path(__file__).resolve().parents[2]
     / "gym_so100_tpu" / "assets" / "so100_transfer_cube.xml"
 )
+# The Franka Panda end-effector scene (.obj meshes, general actuators, the
+# finger-coupling joint equality and a mocap weld), read in place as well.
+# It has nv = 15: it runs on the single-env engine (`ops/forward.py`
+# `step`, `n_steps`); the CUDA Newton kernel is built for the SO100's nv = 12.
+PANDA_XML = str(Path(ASSETS_XML).with_name("pandas_transfer_cube_ee.xml"))
 
 _JNT_CODE = {"free": JNT_FREE, "hinge": JNT_HINGE, "slide": JNT_SLIDE}
 _GEOM_CODE = {"box": GEOM_BOX, "mesh": GEOM_MESH, "sphere": 2, "capsule": 3,

@@ -214,11 +214,17 @@ class Model(_TensorFields):
     def dtype(self) -> torch.dtype:
         return self.qpos0.dtype
 
+    def body_id(self, name: str) -> int:
+        return self.names_body.index(name)
+
     def geom_id(self, name: str) -> int:
         return self.names_geom.index(name)
 
     def site_id(self, name: str) -> int:
         return self.names_site.index(name)
+
+    def joint_id(self, name: str) -> int:
+        return self.names_joint.index(name)
 
 
 @dataclass(frozen=True)

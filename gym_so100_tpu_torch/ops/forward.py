@@ -11,6 +11,9 @@ semi-implicit Euler; ten substeps make one 0.02 s control step.
 * The batched engine (`forward_batched`, `step_batched`, `n_steps_batched`):
   `smooth_lanes`, `narrowphase.collide_batched_lanes` (with the hull-sweep
   kernel), `constraint_lanes` and `solver_lanes` (with the solver kernel).
+
+Both name their stages in profiler traces as JAX's `named_scope`s do
+(`profiling.annotate`: smooth, collide, efc, solve, integrate).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..models.scene import Data, Model, State
+from ..profiling import annotate
 from . import constraint, constraint_lanes, smooth, smooth_lanes, solver, solver_lanes
 from .collision import narrowphase
 
@@ -25,18 +29,23 @@ from .collision import narrowphase
 def forward(m: Model, s: State) -> Data:
     """One env's forward dynamics: Data with the contacts, qacc (after the
     constraint solve), qfrc_constraint and solver_niter."""
-    d = smooth.forward_smooth(m, s)
-    con = narrowphase.collide(m, d)
+    with annotate("smooth"):
+        d = smooth.forward_smooth(m, s)
+    with annotate("collide"):
+        con = narrowphase.collide(m, d)
     d = d.replace(contact=con)
-    efc = constraint.make_efc(m, d, s, con)
-    qacc, qfrc, _, niter = solver.solve(m, d, efc, s.qacc_warmstart)
+    with annotate("efc"):
+        efc = constraint.make_efc(m, d, s, con)
+    with annotate("solve"):
+        qacc, qfrc, _, niter = solver.solve(m, d, efc, s.qacc_warmstart)
     return d.replace(qacc=qacc, qfrc_constraint=qfrc, solver_niter=niter)
 
 
 def step(m: Model, s: State) -> tuple[State, Data]:
     """One physics substep of one env (forward, then semi-implicit Euler)."""
     d = forward(m, s)
-    s2 = smooth.integrate(m, s, d.qacc)
+    with annotate("integrate"):
+        s2 = smooth.integrate(m, s, d.qacc)
     return s2.replace(qacc_warmstart=d.qacc), d
 
 
@@ -60,7 +69,8 @@ def forward_batched(m: Model, s: State) -> Data:
     """Batched forward dynamics; `s` leaves have a leading env axis.
     Returns Data with qacc (post-constraint), qfrc_constraint, solver_niter
     and the selected contacts (`contact`, ContactLanes)."""
-    sl = smooth_lanes.forward_smooth_lanes(m, s)
+    with annotate("smooth"):
+        sl = smooth_lanes.forward_smooth_lanes(m, s)
     d = Data(
         geom_xpos=sl["geom_xpos"],
         geom_xmat=sl["geom_xmat"],
@@ -76,11 +86,14 @@ def forward_batched(m: Model, s: State) -> Data:
         qfrc_bias=sl["qfrc_bias"],
         qfrc_smooth=sl["qfrc_smooth"],
     )
-    cl = narrowphase.collide_batched_lanes(m, d)
-    efc = constraint_lanes.make_efc_from_lanes(m, d, s, cl)
-    qacc, qfrc, niter = solver_lanes.solve_lanes(
-        m, sl["qM_lanes"], d.qacc_smooth, efc, s.qacc_warmstart
-    )
+    with annotate("collide"):
+        cl = narrowphase.collide_batched_lanes(m, d)
+    with annotate("efc"):
+        efc = constraint_lanes.make_efc_from_lanes(m, d, s, cl)
+    with annotate("solve"):
+        qacc, qfrc, niter = solver_lanes.solve_lanes(
+            m, sl["qM_lanes"], d.qacc_smooth, efc, s.qacc_warmstart
+        )
     return d.replace(contact=cl, qacc=qacc, qfrc_constraint=qfrc,
                      solver_niter=niter)
 
@@ -88,7 +101,8 @@ def forward_batched(m: Model, s: State) -> Data:
 def step_batched(m: Model, s: State) -> tuple[State, Data]:
     """One physics substep (forward, then semi-implicit Euler)."""
     d = forward_batched(m, s)
-    s2 = smooth_lanes.integrate_lanes(m, s, d.qacc)
+    with annotate("integrate"):
+        s2 = smooth_lanes.integrate_lanes(m, s, d.qacc)
     return s2.replace(qacc_warmstart=d.qacc), d
 
 

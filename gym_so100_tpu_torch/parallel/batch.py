@@ -1,11 +1,14 @@
-"""Batched lockstep env execution on one device.
+"""Batched lockstep env execution: one device, or one rank's rows of a
+batch sharded across processes.
 
 The port of `gym_so100_tpu/parallel/batch.py::BatchedEnv` (state and
-pixel observations; no sharding yet).  The env batch is one set of tensors
-with a leading env axis, stepped together.  Auto-reset follows Gymnasium's
-vector env convention: at an episode boundary the returned obs is the
-fresh episode's first observation and the terminal one goes to
-info["final_obs"]; episodes truncate at the registered limits.
+pixel observations).  The env batch is one set of tensors with a leading
+env axis, stepped together.  Auto-reset follows Gymnasium's vector env
+convention: at an episode boundary the returned obs is the fresh episode's
+first observation and the terminal one goes to info["final_obs"]; episodes
+truncate at the registered limits.  `shard` makes the env one rank's rows
+of the batch (`parallel/dist.py`): its envs are exactly those rows of the
+one-process batch with the same seed.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 import os
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -87,10 +91,55 @@ class BatchedEnv:
                 m, render_aux, tri_chunk=128,
                 max_tris_per_mesh=int(os.environ.get("GST_OBS_TRIS", "100")))
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        # the whole batch and this env's rows of it (all of it until `shard`)
+        self.global_envs = num_envs
+        self.rows = slice(0, num_envs)
+        self.group = None
+        self.sharded = False
+
+    def shard(self, group=None):
+        """Make this env this rank's rows of its `num_envs`-wide batch in the
+        process group `group` (default: every rank); returns the env.
+
+        Afterwards `num_envs` is the rank's share, `global_envs` the whole
+        batch and `rows` the rank's slice of it.  Cube spawns are drawn for
+        the whole batch from the env's generator, and each rank keeps its
+        rows, so a rank's envs are those rows of the one-process batch with
+        the same seed, at reset and at autoreset.  The autoreset test is
+        taken across ranks (one all-reduce per control step), so every
+        rank's generator draws the same spawns."""
+        from . import dist
+
+        self.rows = dist.env_rows(self.global_envs, group)
+        self.num_envs = self.rows.stop - self.rows.start
+        self.group = group
+        self.sharded = True
+        return self
 
     def _spawn(self):
         return C.sample_so100_box_poses(
-            self.num_envs, self.generator, self.m.dtype, self.device)
+            self.global_envs, self.generator, self.m.dtype, self.device)[self.rows]
+
+    def _poses(self, box_pose):
+        """Cube poses as a tensor on the env's device, copied from an array
+        (numpy views of JAX arrays are read-only): this env's rows of a
+        whole-batch array, or this env's own."""
+        if isinstance(box_pose, torch.Tensor):
+            box_pose = box_pose.to(dtype=self.m.dtype, device=self.device)
+        else:
+            box_pose = torch.tensor(np.asarray(box_pose), dtype=self.m.dtype,
+                                    device=self.device)
+        if box_pose.shape[0] == self.global_envs != self.num_envs:
+            box_pose = box_pose[self.rows]
+        return box_pose
+
+    def _any(self, done):
+        """Whether some env of the whole batch is done."""
+        if self.sharded:
+            from . import dist
+
+            return dist.any_across(done, self.group)
+        return bool(done.any())
 
     def _obs_vector(self, obs):
         """Flat state observation (box, bin, ee, qpos)."""
@@ -101,13 +150,11 @@ class BatchedEnv:
 
     def reset(self, seed=None, box_pose=None) -> core.EnvState:
         """Fresh episodes for every env.  Cube spawns come from `box_pose`
-        (num_envs, 7) when given, else from the env's generator (reseeded
-        by `seed`)."""
+        (num_envs, 7), or the whole batch's (global_envs, 7) when sharded,
+        when given, else from the env's generator (reseeded by `seed`)."""
         if seed is not None:
             self.generator.manual_seed(seed)
-        if box_pose is None:
-            box_pose = self._spawn()
-        box_pose = torch.as_tensor(box_pose, dtype=self.m.dtype, device=self.device)
+        box_pose = self._spawn() if box_pose is None else self._poses(box_pose)
         return core.reset(self.m, box_pose)
 
     def _pixel_obs(self, physics):
@@ -130,7 +177,8 @@ class BatchedEnv:
         info): obs (B, 15) float32, or the pixel obs dict.  At episode
         boundaries obs is the new episode's first observation and
         info["final_obs"] the terminal one.  New episodes spawn the cube at
-        `reset_box_pose` (B, 7) when given, else from the env's generator."""
+        `reset_box_pose` (B, 7) when given (the whole batch's when
+        sharded), else from the env's generator."""
         es2, obs, reward, terminated, d = core.step_batched(
             self.m, es, actions, self.ids, self.task)
         truncated = es2.t >= self.max_episode_steps
@@ -141,13 +189,12 @@ class BatchedEnv:
         else:
             final_obs = self._obs_vector(obs)
         obs_out = final_obs
-        # The whole autoreset branch runs only when some env is done.  The
-        # test costs one device-to-host sync per control step.
-        if bool(done.any()):
-            if reset_box_pose is None:
-                reset_box_pose = self._spawn()
-            fresh = core.reset(self.m, torch.as_tensor(
-                reset_box_pose, dtype=self.m.dtype, device=self.device))
+        # The whole autoreset branch runs only when some env (of the whole
+        # batch) is done.  The test costs one device-to-host sync per control
+        # step.
+        if self._any(done):
+            fresh = core.reset(self.m, self._spawn() if reset_box_pose is None
+                               else self._poses(reset_box_pose))
             es2 = _where(done, fresh, es2)
             if self.renderer is not None:
                 obs_out = self._pixel_obs(es2.physics)

@@ -11,15 +11,28 @@ Pixel observations (48x64 top-camera frames and the arm qpos):
   python -m gym_so100_tpu_torch.scripts.train_sac --task so100_touch_cube \
       --obs pixels_agent_pos --obs-height 48 --obs-width 64 --num-envs 128 \
       --utd 8 --total-steps 1500000 --checkpoint-dir runs/sac_pixels
+
+Data-parallel over several processes (--distributed, one rank per card;
+`--num-envs` is the whole batch, split over the ranks, and the learner is
+replicated; only rank 0 logs and writes checkpoints):
+
+  torchrun --nproc_per_node 4 -m gym_so100_tpu_torch.scripts.train_sac \
+      --distributed --task so100_touch_cube --num-envs 512 --utd 8
+
+and on the CPU (gloo): `torchrun --nproc_per_node 2 -m
+gym_so100_tpu_torch.scripts.train_sac --distributed --device cpu ...`.
 """
 
 from __future__ import annotations
 
 import argparse
 
+import torch
+
 from ..agents.metrics import MetricLogger
 from ..agents.sac import SACConfig
 from ..agents.train import REFERENCE_STAGES, TrainConfig, Trainer
+from ..parallel import dist
 
 
 def parse_args(argv=None):
@@ -58,11 +71,23 @@ def parse_args(argv=None):
                    help="write TensorBoard scalars here in addition to stdout JSON")
     p.add_argument("--device", default="cuda",
                    help="torch device; cpu runs the plain PyTorch paths")
+    p.add_argument("--distributed", action="store_true",
+                   help="join the process group of the launcher's variables (torchrun's, "
+                   "or JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID) and "
+                   "shard the env batch over its ranks")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
+    group, device, rank = None, args.device, 0
+    if args.distributed:
+        if not dist.init_distributed(device=args.device):
+            raise RuntimeError("--distributed: no process group to join (launch with "
+                               "torchrun, or export JAX_COORDINATOR_ADDRESS, "
+                               "JAX_NUM_PROCESSES and JAX_PROCESS_ID)")
+        group, device = dist.env_mesh(), dist.rank_device(args.device)
+        rank = dist.world(group)[0]
     pixels = args.obs == "pixels_agent_pos"
     sac_cfg = SACConfig(
         obs_dim=6 if pixels else 15,
@@ -92,18 +117,22 @@ def main(argv=None):
             video_dir=args.video_dir,
         ),
         sac_cfg,
-        device=args.device,
+        device=device,
+        group=group,
     )
     init_state = None
     if args.resume:
         init_state = trainer.restore(args.resume)
-        print(f"resumed from {args.resume} at env step "
-              f"{init_state.batch_steps * args.num_envs}")
-    logger = MetricLogger(args.tensorboard_dir)
+        if rank == 0:
+            print(f"resumed from {args.resume} at env step "
+                  f"{init_state.batch_steps * args.num_envs}")
+    logger = MetricLogger(args.tensorboard_dir if rank == 0 else None)
     try:
         return trainer.train(seed=args.seed, progress=logger, init_state=init_state)
     finally:
         logger.close()
+        if group is not None:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

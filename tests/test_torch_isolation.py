@@ -14,7 +14,11 @@ port there.  Two guards:
   scripts and the hull kernel A/B script, and takes one HER goal-env step and one Cartesian (mocap-weld)
   env step, then builds the single-env Gymnasium-API adapter (`SO100Env`,
   float64, state obs, on the CPU), takes one step with it and imports
-  `envs.registration` and `envs.goal_env`'s `SO100GoalEnv`.
+  `envs.registration` and `envs.goal_env`'s `SO100GoalEnv`; then imports
+  `parallel/dist.py` (and finds no process group to join),
+  `profiling.py`, the three periphery modules (`interop/lerobot.py`,
+  `render/mjpeg.py`, `teleop/input.py`) and every script, and builds the
+  Panda EE scene's Model on the CPU.
 """
 
 import ast
@@ -146,6 +150,20 @@ obs, reward, term, trunc, info = senv.step(senv.action_space.sample())
 assert obs.shape == (15,) and isinstance(reward, float) and trunc is False
 assert set(registration.REGISTRY) == {"gym_so100_tpu/SO100TouchCube-v0",
     "gym_so100_tpu/SO100TouchCubeSparse-v0", "gym_so100_tpu/SO100CubeToBin-v0"}
+from gym_so100_tpu_torch import profiling
+from gym_so100_tpu_torch.interop import lerobot
+from gym_so100_tpu_torch.parallel import dist
+from gym_so100_tpu_torch.render import mjpeg
+from gym_so100_tpu_torch.teleop import input as teleop_input
+import gym_so100_tpu_torch.scripts as scripts_pkg, importlib, pkgutil
+
+for mod in pkgutil.iter_modules(scripts_pkg.__path__):
+    importlib.import_module(f"gym_so100_tpu_torch.scripts.{mod.name}")
+assert dist.init_distributed() is False
+from gym_so100_tpu_torch.models.builder import PANDA_XML
+
+m_panda, aux_panda = build_model(PANDA_XML, max_contacts=8, device="cpu")
+assert (m_panda.nv, m_panda.nu) == (15, 8) and "home" in aux_panda["keyframes"]
 loaded = sorted(n for n in sys.modules if n.split(".")[0] in FORBIDDEN)
 assert not loaded, loaded
 print("ISOLATED OK")

@@ -277,6 +277,27 @@ def test_train_step_ingests_then_updates():
     assert a.shape == (8, 2) and bool((a.abs() <= 1).all())
 
 
+def test_states_loaded_from_one_dict_update_alike():
+    """Two states loaded from one state dict are independent: updating one
+    leaves the other's optimizer counters as saved, so the same update on
+    it gives the same parameters."""
+    s = sac.SAC(sac.SACConfig(obs_dim=4, act_dim=2, batch_size=8, buffer_size=32,
+                              features=(16, 16)), device="cpu")
+    st = s.init(seed=1)
+    rng = np.random.RandomState(0)
+    obs = torch.from_numpy(rng.randn(8, 4).astype(np.float32))
+    act = torch.from_numpy(rng.uniform(-1, 1, (8, 2)).astype(np.float32))
+    st, _ = s.train_step(st, obs, act, torch.ones(8), obs, torch.zeros(8, dtype=torch.bool))
+    saved = s.state_dict(st)
+    a, b = s.load_state_dict(saved), s.load_state_dict(saved)
+    a, _ = s.update(a, a.buffer.sample(8, a.generator))
+    assert int(b.critic_opt.state_dict()["state"][0]["step"]) == 1
+    b, _ = s.update(b, b.buffer.sample(8, b.generator))
+    for pa, pb in zip([*a.actor.parameters(), *a.critic.parameters(), a.log_alpha],
+                      [*b.actor.parameters(), *b.critic.parameters(), b.log_alpha]):
+        assert torch.equal(pa, pb)
+
+
 # -- behavior cloning --------------------------------------------------------
 
 
