@@ -94,15 +94,28 @@ Phases, each printed on its own line:
     kernels (10 launches each) and the five stage ranges; the summed
     device time of its kernels, copies and sets against the step's wall
     time (the device-busy share);
-13. print the build, ptxas, launch-shape and check lines again (so that
+13. the batch-first narrowphase on phase 3's state after 12 control
+    steps (4096 envs, float32, K = 16): position_stage_batched once,
+    counted (exactly 1 hull-sweep launch, no solve); its Contact against
+    collide_batched_lanes on the same Data, transposed (active, geom ids,
+    condim and ncand equal; dist, pos and frame within JAX's tolerances);
+    make_efc_batched against make_efc_from_lanes, transposed (bit-equal
+    but the tangent rows' J and aref of contacts whose two frames differ
+    by rounding, there within 1e-6 and 1e-5 of scale); 64 envs again
+    on the CPU, where the route runs sweep_h_plain, from the card's geom
+    poses (slot by slot, JAX's tolerances) and from the state (the
+    contacts as sets, BF_CPU_TOL); the route, its collide stage, the lanes
+    collide and the hull kernel on its inputs timed with CUDA events;
+14. print the build, ptxas, launch-shape and check lines again (so that
     the end of the output holds them), the kernel table as one JSON line
     (per kernel: the K = 16 row, the statistic its check bounds with that
     bound, the training phase's launches, check and times under
     "train_k32", the launches of the pixel env and pixel training under
     "pixel_env" and "train_pixels", the HER phase's launches, check and
     times under "her", and the EE phase's launches, check, times and neq
-    under "ee", and the multi-GPU phase's per-rank launches and times
-    under "dist"), the single-env, Panda and trace phases' numbers as a
+    under "ee", the multi-GPU phase's per-rank launches and times under
+    "dist", and the batch-first phase's launches and times under
+    "batch_first"), the single-env, Panda and trace phases' numbers as a
     JSON line before it, the card, then the result line
     {"ok": true, "device": {...}}.
 
@@ -212,6 +225,17 @@ PANDA_TOL = 5e-3
 PANDA64_STEPS = 1
 
 
+# the batch-first phase: position_stage_batched on phase 3's landed state
+BF_CPU_ENVS = 64      # envs run again on the CPU
+BF_REPS = 5           # calls timed with CUDA events
+# JAX's float32 contract of collide_batched against its lanes form
+# (tests/test_lanes.py): dist, pos, frame (rtol, atol)
+BF_TOL = {"dist": (1e-6, 1e-7), "pos": (1e-6, 1e-6), "frame": (1e-5, 1e-6)}
+# the CPU's kinematics against the card's: CUDA's and the host libm's
+# float32 sin/cos differ by an ulp or two, which the arm's chain of bodies
+# carries into the geom poses (the CPU tests hold XLA's to torch's within
+# 2e-6); poses, and the matched contacts' depth, point and normal
+BF_CPU_TOL = 1e-5
 RECAP = []   # the build, launch-shape and check lines, printed again at the end
 
 
@@ -256,6 +280,24 @@ def log_shape(name, shape, B):
         f"shared memory, {blocks} blocks at B = {B}", recap=True)
 
 
+def hull_inputs(m, d):
+    """The hull sweep's inputs for the geom poses of `d`, as
+    hull_lanes.collide_hulls_lanes packs them: p and R as (G, B) lanes,
+    and their packed forms (3G, B) and (9G, B)."""
+    import torch
+
+    from gym_so100_tpu_torch.ops.collision import hull_lanes
+
+    tb = hull_lanes.hull_tables(m)
+    gx = d.geom_xpos[:, tb.gidx, :]
+    gm = d.geom_xmat[:, tb.gidx, :, :]
+    p = [gx[..., k].T for k in range(3)]
+    R = [[gm[..., j, k].T for k in range(3)] for j in range(3)]
+    p_pack = torch.cat(p).contiguous()
+    R_pack = torch.cat([R[j][k] for j in range(3) for k in range(3)]).contiguous()
+    return p, R, p_pack, R_pack
+
+
 def check_hull(env, es, timed):
     """Kernel 1 against sweep_h_plain on the geom poses of `es`: the same
     float32 operations in the same order, so the results must be equal
@@ -268,14 +310,8 @@ def check_hull(env, es, timed):
     from gym_so100_tpu_torch.ops.smooth_lanes import kinematics
 
     m = env.m
-    d = kinematics(m, es.physics)
     tb = hull_lanes.hull_tables(m)
-    gx = d.geom_xpos[:, tb.gidx, :]
-    gm = d.geom_xmat[:, tb.gidx, :, :]
-    p = [gx[..., k].T for k in range(3)]
-    R = [[gm[..., j, k].T for k in range(3)] for j in range(3)]
-    p_pack = torch.cat(p).contiguous()
-    R_pack = torch.cat([R[j][k] for j in range(3) for k in range(3)]).contiguous()
+    p, R, p_pack, R_pack = hull_inputs(m, kinematics(m, es.physics))
     args = (p_pack, R_pack, tb.verts, tb.D, tb.counts, tb.i1, tb.i2)
     out_k = hull_lanes.sweep_h(p_pack, R_pack, tb)
     out_p = hull_lanes.sweep_h_plain(*args)
@@ -1578,6 +1614,180 @@ def run_trace(env, card):
                 busy_share=busy_ms / plain_wall, trace_mib=size / 2**20, events=len(events))
 
 
+def _contacts_as_sets(a, b, tol):
+    """Per env, match the active contacts of the Contacts `a` and `b`
+    (fields (B, K, ...), CPU) by geom pair and nearest point; return the
+    largest difference of depth, point and normal among the matched ones,
+    and the count of contacts without a partner.  Slots are not compared in
+    order: rounding can reorder contacts of equal depth (a box's corners on
+    the table), and it turns the tangent rows of a frame whose normal is
+    nearly a world axis.  A contact may lack a partner only where rounding
+    can decide it: within `tol` of the activity bound (depth 0), or of the
+    shallowest selected depth of an env with more candidates than slots."""
+    B = a.dist.shape[0]
+    worst, unmatched = 0.0, 0
+
+    def edge(c, i, k):
+        over = int(c.ncand[i]) > c.dist.shape[1]
+        shallow = float(c.dist[i][c.active[i]].max())
+        return abs(float(c.dist[i, k])) <= tol or (over and float(c.dist[i, k]) >= shallow - tol)
+
+    for i in range(B):
+        free = set(b.active[i].nonzero()[:, 0].tolist())
+        for k in a.active[i].nonzero()[:, 0].tolist():
+            pair = (int(a.geom1[i, k]), int(a.geom2[i, k]))
+            cand = [j for j in free if (int(b.geom1[i, j]), int(b.geom2[i, j])) == pair]
+            j = min(cand, default=None,
+                    key=lambda j: float((a.pos[i, k] - b.pos[i, j]).abs().max()))
+            if j is None or float((a.pos[i, k] - b.pos[i, j]).abs().max()) > tol:
+                assert edge(a, i, k), f"env {i}: no match for the contact {k} of pair {pair}"
+                unmatched += 1
+                continue
+            free.discard(j)
+            worst = max(worst, abs(float(a.dist[i, k] - b.dist[i, j])),
+                        float((a.pos[i, k] - b.pos[i, j]).abs().max()),
+                        float((a.frame[i, k, 0] - b.frame[i, j, 0]).abs().max()))
+        for j in free:
+            assert edge(b, i, j), f"env {i}: no match for the contact {j}"
+            unmatched += 1
+    assert worst <= tol, f"matched contacts differ by {worst:.3g} > {tol:.3g}"
+    return worst, unmatched
+
+
+def run_batch_first(env, es, card):
+    """The batch-first narrowphase on `es` (phase 3's 4096-env state after
+    12 control steps, float32, K = 16): position_stage_batched once,
+    counted (one hull-sweep launch, no solve); its Contact against
+    collide_batched_lanes on the same Data, transposed; make_efc_batched
+    against make_efc_from_lanes, transposed; BF_CPU_ENVS envs again on the
+    CPU, where the route runs sweep_h_plain; both routes timed."""
+    import torch
+
+    from gym_so100_tpu_torch import kernels
+    from gym_so100_tpu_torch.models.scene import Data
+    from gym_so100_tpu_torch.ops import constraint_lanes, forward, smooth_lanes, solver_lanes
+    from gym_so100_tpu_torch.ops.collision import hull_lanes, narrowphase
+
+    m, s = env.m, es.physics
+    hull_lanes.sweep_h.launches = 0
+    solver_lanes.solve_fused.launches = 0
+    d = forward.position_stage_batched(m, s)
+    torch.cuda.synchronize()
+    launches = {"hull_sweep": hull_lanes.sweep_h.launches,
+                "newton_solve": solver_lanes.solve_fused.launches}
+    assert launches == {"hull_sweep": 1, "newton_solve": 0}, launches
+    con = d.contact
+    B, K = con.dist.shape
+    assert (B, K) == (NUM_ENVS, MAX_CONTACTS) and con.dist.dtype == torch.float32
+    for name in ("dist", "pos", "frame"):
+        assert bool(torch.isfinite(getattr(con, name)).all()), f"batch-first: {name} not finite"
+    assert bool(con.active.any()), "batch-first: no active contact"
+
+    # the lanes route on the same Data, transposed
+    cl = narrowphase.collide_batched_lanes(m, d)
+    T = lambda a: a.movedim(0, -1)
+    for name in ("active", "geom1", "geom2", "condim"):
+        assert torch.equal(getattr(cl, name), T(getattr(con, name))), f"batch-first: {name}"
+    assert torch.equal(cl.ncand, con.ncand), "batch-first: ncand"
+    err = {}
+    pairs = {"dist": [(cl.dist, T(con.dist))],
+             "pos": [(cl.pos[c], T(con.pos[..., c])) for c in range(3)],
+             "frame": [(cl.frame[r][c], T(con.frame[..., r, c]))
+                       for r in range(3) for c in range(3)]}
+    for name, ab in pairs.items():
+        rtol, atol = BF_TOL[name]
+        err[name] = max(float((x - y).abs().max()) for x, y in ab)
+        assert all(torch.allclose(x, y, rtol=rtol, atol=atol) for x, y in ab), (
+            f"batch-first: {name} differs from the lanes route by {err[name]:.3g}")
+
+    # constraint rows from the two forms of the contacts
+    sl = smooth_lanes.forward_smooth_lanes(m, s)
+    dd = Data(cdof=sl["cdof"], subtree_com=sl["subtree_com0"][:, None],
+              site_xpos=sl["site_xpos"], site_xmat=sl["site_xmat"])
+    eb = constraint_lanes.make_efc_batched(m, dd, s, con)
+    el = constraint_lanes.make_efc_from_lanes(m, dd, s, cl)
+    lanes_t = {"J": el.J.permute(2, 1, 0), "con_uscale": el.con_uscale.permute(2, 0, 1)}
+    unequal = [k for k in ("J", "aref", "D", "R", "pos", "con_mu", "con_uscale", "con_Dn",
+                           "con_active")
+               if not torch.equal(getattr(eb, k),
+                                  lanes_t[k] if k in lanes_t else getattr(el, k).T)]
+    # both read the same rows, but the two forms normalize a frame's t1 in
+    # other orders, so a contact's tangent rows (J, and aref through J.qvel)
+    # may differ by rounding where its two frames do; every other row and
+    # field must be bit-equal
+    cl_frame = torch.stack([torch.stack(cl.frame[r], -1) for r in range(3)], -2).transpose(0, 1)
+    moved = ~(con.frame == cl_frame).all(-1).all(-1)                     # (B, K)
+    start = el.neq + el.nf + el.nl
+    may = torch.zeros_like(eb.aref, dtype=torch.bool)
+    for j in (1, 2):
+        may[:, start + j::constraint_lanes.CDIM] = moved
+    assert set(unequal) <= {"J", "aref"}, f"batch-first: efc fields differ: {unequal}"
+    efc_err = {}
+    for k, a, b, scale in (("J", eb.J, lanes_t["J"], 1e-6), ("aref", eb.aref, el.aref.T, 1e-5)):
+        diff = (a - b).abs()
+        if diff.dim() == 3:
+            diff = diff.amax(-1)
+        assert not bool((diff[~may] > 0).any()), f"batch-first: {k} differs off the tangent rows"
+        efc_err[k] = float(diff.max())
+        bound = scale * max(1.0, float(b.abs().max()))
+        assert efc_err[k] <= bound, f"batch-first: {k} differs by {efc_err[k]:.3g} > {bound:.3g}"
+    assert bool(eb.is_floss[:, el.neq:el.neq + el.nf].all())
+    assert torch.equal(eb.floss[:, el.neq:el.neq + el.nf], el.floss.T)
+
+    # BF_CPU_ENVS envs on the CPU, where the route runs sweep_h_plain: from
+    # the card's geom poses (the kernel's route against its plain version:
+    # the same operations, slot by slot), and from the state (the whole
+    # function, with the CPU's own kinematics)
+    n = BF_CPU_ENVS
+    m_cpu = m.to("cpu")
+    rows = lambda c: c.index(slice(0, n)).to("cpu")
+    con_card = rows(con)
+    same = narrowphase.collide_batched(m_cpu, Data(geom_xpos=d.geom_xpos[:n].cpu(),
+                                                   geom_xmat=d.geom_xmat[:n].cpu()))
+    for name in ("active", "geom1", "geom2", "condim", "ncand"):
+        assert torch.equal(getattr(same, name), getattr(con_card, name)), f"CPU route: {name}"
+    plain_err = {}
+    for name, (rtol, atol) in BF_TOL.items():
+        a, b = getattr(same, name), getattr(con_card, name)
+        plain_err[name] = float((a - b).abs().max())
+        assert torch.allclose(a, b, rtol=rtol, atol=atol), (
+            f"CPU route: {name} differs by {plain_err[name]:.3g}")
+    d_cpu = forward.position_stage_batched(m_cpu, s.index(slice(0, n)).to("cpu"))
+    pose_err = max(float((d_cpu.geom_xpos - d.geom_xpos[:n].cpu()).abs().max()),
+                   float((d_cpu.geom_xmat - d.geom_xmat[:n].cpu()).abs().max()))
+    assert pose_err <= BF_CPU_TOL, f"CPU kinematics differ by {pose_err:.3g}"
+    set_err, unmatched = _contacts_as_sets(d_cpu.contact, con_card, BF_CPU_TOL)
+
+    # times: the batch-first route, its collide stage, the lanes collide,
+    # and the hull kernel on this route's inputs
+    tb = hull_lanes.hull_tables(m)
+    _, _, p_pack, R_pack = hull_inputs(m, d)
+    out = torch.empty(4 * tb.P, B, device=p_pack.device)
+    Vmax = tb.verts.shape[1] // 3
+    kernel_ms = cuda_ms(lambda: kernels.launch(
+        "gst_hull_sweep", p_pack, R_pack, tb.verts, tb.D, tb.counts, tb.i1, tb.i2, out,
+        tb.G, tb.D.shape[0], tb.P, Vmax, tb.vtot, B), 50)
+    stage_ms = cuda_ms(lambda: forward.position_stage_batched(m, s), BF_REPS)
+    collide_ms = cuda_ms(lambda: narrowphase.collide_batched(m, d), BF_REPS)
+    lanes_ms = cuda_ms(lambda: narrowphase.collide_batched_lanes(m, d), BF_REPS)
+    log(f"batch-first narrowphase: {int(con.active.sum())} active contacts in "
+        f"{int(con.active.any(1).sum())}/{B} envs, launches {launches}; against the lanes "
+        f"route: ints equal, max abs err dist {err['dist']:.3g} pos {err['pos']:.3g} "
+        f"frame {err['frame']:.3g} ({int(moved.sum())} frames differ); efc rows: "
+        f"{', '.join(unequal) or 'none'} differ, J {efc_err['J']:.3g}, aref "
+        f"{efc_err['aref']:.3g}, other fields bit-equal"
+        f"; CPU ({n} envs) from the card's poses: ints equal, dist {plain_err['dist']:.3g} "
+        f"pos {plain_err['pos']:.3g} frame {plain_err['frame']:.3g}; from the state: poses "
+        f"{pose_err:.3g}, contacts as sets {set_err:.3g} (bound {BF_CPU_TOL:g}), "
+        f"{unmatched} unmatched at a bound", recap=True)
+    log(f"batch-first times (CUDA events): position_stage_batched {stage_ms:.2f} ms, "
+        f"collide_batched {collide_ms:.2f} ms, collide_batched_lanes {lanes_ms:.2f} ms, "
+        f"hull kernel {kernel_ms:.4f} ms per launch, on {card}", recap=True)
+    return {"hull_sweep": dict(launches=1, ms=kernel_ms, route_ms=stage_ms,
+                               collide_ms=collide_ms, lanes_collide_ms=lanes_ms),
+            "newton_solve": dict(launches=0)}
+
+
 def main():
     try:
         import torch
@@ -1638,6 +1848,7 @@ def main():
     check_hull(env, es, timed=False)
     check_solver(env, es, timed=False)
     es = advance(env, es, LANDED_STEPS - steps, gen)
+    landed = es
     rows = [check_hull(env, es, timed=True),
             check_solver(env, es, timed=True, floor_samples=FLOOR_SAMPLES)]
 
@@ -1715,7 +1926,12 @@ def main():
     traced = run_trace(env, card)
     log(f"trace phase: {time.perf_counter() - t0:.1f} s wall time", recap=True)
 
-    # 13. results
+    # 13. the batch-first narrowphase on phase 3's landed state, counted
+    t0 = time.perf_counter()
+    batch_first = run_batch_first(env, landed, card)
+    log(f"batch-first phase: {time.perf_counter() - t0:.1f} s wall time", recap=True)
+
+    # 14. results
     for line in RECAP:
         log(f"recap: {line}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
@@ -1733,7 +1949,8 @@ def main():
          "train_pixels": {"launches": train_pixels[row["name"]]},
          "her": {k: her[row["name"]][k] for k in train_keys},
          "ee": {k: ee[row["name"]][k] for k in ee_keys},
-         "dist": dist_rows[row["name"]]}
+         "dist": dist_rows[row["name"]],
+         "batch_first": batch_first[row["name"]]}
         for row in rows]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ..device import resolve_device
 from ..envs.goal_env import compute_reward, goal_distance
 
 
@@ -21,7 +22,8 @@ class HerBuffer:
 
     FIELDS = ("obs", "act", "next_obs", "agoal", "dgoal", "ep_len")
 
-    def __init__(self, episodes, T, obs_dim, act_dim, dtype=torch.float32, device="cpu"):
+    def __init__(self, episodes, T, obs_dim, act_dim, dtype=torch.float32, device="cuda"):
+        device = resolve_device(device)
         z = lambda *s, dt=dtype: torch.zeros(*s, dtype=dt, device=device)
         self.obs = z(episodes, T, obs_dim)
         self.act = z(episodes, T, act_dim)

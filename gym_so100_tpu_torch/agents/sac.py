@@ -225,7 +225,8 @@ class Normalizer:
         self.mean, self.var, self.count = mean, var, count
 
     @staticmethod
-    def create(dim, dtype=torch.float32, device="cpu"):
+    def create(dim, dtype=torch.float32, device="cuda"):
+        device = resolve_device(device)
         return Normalizer(
             mean=torch.zeros(dim, dtype=dtype, device=device),
             var=torch.ones(dim, dtype=dtype, device=device),
@@ -267,7 +268,8 @@ class ReplayBuffer:
 
     FIELDS = ("obs", "act", "rew", "next_obs", "done")
 
-    def __init__(self, capacity, obs_spec, act_dim, dtype=torch.float32, device="cpu"):
+    def __init__(self, capacity, obs_spec, act_dim, dtype=torch.float32, device="cuda"):
+        device = resolve_device(device)
         z = lambda *s, dt=dtype: torch.zeros(*s, dtype=dt, device=device)
         if isinstance(obs_spec, int):
             mk = lambda: z(capacity, obs_spec)

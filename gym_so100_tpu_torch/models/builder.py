@@ -56,7 +56,7 @@ HULL_MAX = 64
 
 def build_model(
     path: str = ASSETS_XML, max_contacts: int = 32, device="cuda",
-    dtype=torch.float32, ccd_manifolds: bool = False,
+    dtype=torch.float32, ccd_manifolds: bool = False, keep_visual: bool = False,
 ) -> tuple[Model, dict]:
     """Compile an MJCF file into a Model on `device` with float leaves in
     `dtype`.
@@ -65,7 +65,9 @@ def build_model(
     meshes, render geoms, welds).  `device` defaults to the GPU and raises
     when there is none; pass device="cpu" to build for the CPU.
     ccd_manifolds=True also packs the exact hull/face-polygon tables of the
-    strict-parity path (see the JAX builder)."""
+    strict-parity path (see the JAX builder).  keep_visual is the JAX
+    builder's flag and has no effect: the Model holds the collidable geoms
+    either way, and aux always holds the render geoms."""
     device = resolve_device(device)
     doc = mjcf.parse_mjcf(path)
     model, aux = _build(doc, max_contacts, ccd_manifolds)

@@ -43,12 +43,14 @@ def _matTvec(C, v):
     return tuple(C[0][i] * v[0] + C[1][i] * v[1] + C[2][i] * v[2] for i in range(3))
 
 
-def box_box_lanes(p1, R1, s1, p2, R2, s2):
+def box_box_lanes(p1, R1, s1, p2, R2, s2, margin=0.0):
     """Collide box pairs, one pair per lane.
 
     Args: p1/p2 = tuples of 3 (N,) center components; R1/R2 = 3x3 nested
     tuples of (N,) world-rotation entries (columns = box axes); s1/s2 =
-    tuples of 3 (N,) half sizes.  Returns dict:
+    tuples of 3 (N,) half sizes.  A pair is separated where its largest
+    SAT separation reaches `margin`, and a slot is active below it.
+    Returns dict:
       pos    list of MAXP tuples of 3 (N,) world coords
       normal tuple of 3 (N,) (from box1 toward box2)
       depth  list of MAXP (N,) (negative = penetrating)
@@ -98,7 +100,7 @@ def box_box_lanes(p1, R1, s1, p2, R2, s2):
 
     face_sep, best_face = _argmax(sep_face)
     edge_sep, best_edge = _argmax(sep_edge)
-    separated = torch.maximum(face_sep, edge_sep) >= 0
+    separated = torch.maximum(face_sep, edge_sep) >= margin
     use_edge = edge_sep * _EDGE_FUDGE > face_sep
 
     # =====================================================================
@@ -293,7 +295,7 @@ def box_box_lanes(p1, R1, s1, p2, R2, s2):
             pk = face_pos[k]
             dk = torch.where(use_edge, torch.inf, face_depth[k])
             ak = face_active[k] & ~use_edge
-        ak = ak & not_sep & (dk < 0)
+        ak = ak & not_sep & (dk < margin)
         pos_out.append(tuple(
             p1[c] + R1[c][0] * pk[0] + R1[c][1] * pk[1] + R1[c][2] * pk[2]
             for c in range(3)

@@ -101,6 +101,7 @@ class HullTables:
         self.i2 = as_t(i2, torch.int32)
         self.lcen = as_t(lcen, dtype)
         self.lhalf = as_t(lhalf, dtype)
+        self.pair_ids = as_t(len(m.pairs.box_box) + np.arange(self.P), torch.long)
         # witness groups: pair subsets by side-geom vertex count
         self.groups = {}
         for side, idx in (("1", i1), ("2", i2)):
@@ -210,12 +211,15 @@ sweep_h.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def collide_hulls_lanes(m, d):
+def collide_hulls_lanes(m, d, margin=0.0, lanes_out=False):
     """All hull pairs for a batched Data (geom poses (B, NG, ...)).
 
-    Returns (pos 3 x (P, B), normal 3 x (P, B), depth (P, B), active (P, B),
-    pair_ids (P,) numpy), the lanes-form candidate contract of the
-    narrowphase driver."""
+    Returns (pos (B, P, 3), normal (B, P, 3), depth (B, P), active (B, P),
+    pair_ids (P,)), the batch-first candidate chunk of `collide_batched`;
+    with `lanes_out` the fields stay batch-last instead (pos and normal 3 x
+    (P, B), depth and active (P, B), pair_ids a numpy (P,)), the candidate
+    rows of `collide_batched_lanes`.  A pair is active where its AABBs meet
+    and its depth is below `margin`."""
     tb = hull_tables(m)
     gx = d.geom_xpos[:, tb.gidx, :]                 # (B, G, 3)
     gm = d.geom_xmat[:, tb.gidx, :, :]              # (B, G, 3, 3)
@@ -227,13 +231,17 @@ def collide_hulls_lanes(m, d):
     P = tb.P
     depth = out[:P]
     nrm = [out[(1 + j) * P:(2 + j) * P] for j in range(3)]
-    return _witness_and_pack(m, tb, p, R, depth, nrm)
+    pos, nrm, depth, active, pair_ids = _witness_and_pack(m, tb, p, R, depth, nrm, margin)
+    if lanes_out:
+        return pos, nrm, depth, active, pair_ids
+    return (torch.stack(pos, dim=-1).transpose(0, 1), torch.stack(nrm, dim=-1).transpose(0, 1),
+            depth.T, active.T, tb.pair_ids)
 
 
-def _witness_and_pack(m, tb, p, R, depth, nrm):
+def _witness_and_pack(m, tb, p, R, depth, nrm, margin=0.0):
     """Witness points (the extreme vertex of each geom along the winning
-    direction, midpoint of the two), the AABB activity mask, and output
-    packing."""
+    direction, midpoint of the two), the activity mask (AABBs meet, depth
+    below `margin`), and the lanes-form output."""
     P, B = depth.shape
 
     def extreme(side, sign):
@@ -281,6 +289,6 @@ def _witness_and_pack(m, tb, p, R, depth, nrm):
         hi = torch.minimum(wc[k][j1] + wh[k][j1], wc[k][j2] + wh[k][j2])
         e = hi - lo
         ov = e if ov is None else torch.minimum(ov, e)
-    active = (depth < 0) & (ov > 0)
+    active = (depth < margin) & (ov > 0)
     pair_ids = len(m.pairs.box_box) + np.arange(P, dtype=np.int32)
     return tuple(pos), tuple(nrm), depth, active, pair_ids

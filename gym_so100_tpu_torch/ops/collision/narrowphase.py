@@ -13,8 +13,9 @@ penetrating points are kept.  Three entry points, as in JAX:
   (`manifold.ccd_chunk`), otherwise the hull pairs run `_hull_chunk` (AABB
   cull to K/2 slots, then GJK/EPA in float64 or the direction sweep in
   float32).
-* `collide_batched`, batch-first, float64: box pairs through
-  `boxbox_lanes`, hull pairs through the per-env `_hull_chunk`.
+* `collide_batched`, batch-first: box pairs through `boxbox_lanes`, hull
+  pairs through the per-env `_hull_chunk` in float64 and through
+  `hull_lanes` (the hull-sweep kernel) in float32.
 * `collide_batched_lanes`, the float32 throughput path: box pairs through
   `boxbox_lanes`, hull pairs through `hull_lanes`, candidates (M, B) with B
   minor; in float64 it is `collide_batched` converted by
@@ -274,14 +275,15 @@ def collide(m: Model, d: Data) -> Contact:
 
 
 def collide_batched(m: Model, d: Data) -> Contact:
-    """The float64 batched narrowphase (geom poses (B, NG, ...)) -> a
-    batch-first Contact (fields (B, K, ...)) with the per-contact statics.
-    Box pairs run the lanes box collider, hull pairs the per-env
-    `_hull_chunk` (exact GJK/EPA).  Candidates are pair-major, slot-minor.
-    Float32 runs `collide_batched_lanes`."""
+    """The batched narrowphase (geom poses (B, NG, ...)) -> a batch-first
+    Contact (fields (B, K, ...)) with the per-contact statics.  Box pairs
+    run the lanes box collider.  Hull pairs run, in float64, the per-env
+    `_hull_chunk` (exact GJK/EPA); in float32, `hull_lanes` over every hull
+    pair (one hull-sweep kernel launch on the card), with no per-env slot
+    cull: the deepest-K selection is the only one.  Candidates are
+    pair-major, slot-minor.  In float32 the result is
+    `collide_batched_lanes`' transposed."""
     dtype, dev = d.geom_xpos.dtype, d.geom_xpos.device
-    if dtype != torch.float64:
-        raise ValueError(f"collide_batched is the float64 route, got {dtype}")
     B = d.geom_xpos.shape[0]
     tbl = static_tables(m, "pairs", _PairTables)
     chunks = []  # (pos (B, N, 3), normal (B, N, 3), depth (B, N), active, pair (B, N))
@@ -306,7 +308,11 @@ def collide_batched(m: Model, d: Data) -> Contact:
         chunks.append((pos, normal, bpk(out["depth"]), bpk(out["active"]), pair_ids))
 
     if m.pairs.hull_box + m.pairs.hull_hull:
-        chunks.append(_hull_chunk_batched(m, d.geom_xpos, d.geom_xmat, dtype))
+        if dtype == torch.float64:
+            chunks.append(_hull_chunk_batched(m, d.geom_xpos, d.geom_xmat, dtype))
+        else:
+            hpos, hnrm, hdep, hact, hpair = hull_lanes.collide_hulls_lanes(m, d)
+            chunks.append((hpos, hnrm, hdep, hact, hpair.expand(B, -1)))
 
     pos, normal, depth, active, pair = (torch.cat([c[i] for c in chunks], dim=1)
                                         for i in range(5))
@@ -407,7 +413,7 @@ def collide_batched_lanes(m: Model, d) -> ContactLanes:
             lst.append(comp[:, None, :].expand(P, K, B).reshape(P * K, B))
 
     if m.pairs.hull_box + m.pairs.hull_hull:
-        hpos, hnrm, hdep, hact, _ = hull_lanes.collide_hulls_lanes(m, d)
+        hpos, hnrm, hdep, hact, _ = hull_lanes.collide_hulls_lanes(m, d, lanes_out=True)
         dep_l.append(hdep)
         act_l.append(hact)
         px_l.append(hpos[0]); py_l.append(hpos[1]); pz_l.append(hpos[2])

@@ -9,6 +9,10 @@ the env batch minor.  Row order is static:
 with the contact block slot-major (row start + k*CDIM + j).  Because both
 bodies of a contact share the contact point, its Jacobian row for dof v is
 dir . (lin_v + ang_v x off) * (mask2[v] - mask1[v]).
+
+`make_efc_from_lanes` takes ContactLanes; `make_efc_lanes` and
+`make_efc_batched` take a batch-first Contact, the latter returning the
+batch-first `Efc` of `constraint.make_efc` per env.
 """
 
 from __future__ import annotations
@@ -18,16 +22,18 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..models.scene import JNT_HINGE, ContactLanes, Data, Model, State
+from ..models.scene import JNT_HINGE, Contact, ContactLanes, Data, Model, State
 from .constraint import (
     CDIM,
     MINVAL,
+    Efc,
     equality_rows,
     impedance,
     impedance_comps,
     kb,
     kb_comps,
 )
+from .collision.narrowphase import contact_to_lanes
 
 
 @dataclass(frozen=True)
@@ -51,6 +57,11 @@ class EfcLanes:
     neq: int = 0
     nf: int = 0
     nl: int = 0
+
+
+def make_efc_lanes(m: Model, d: Data, s: State, con: Contact) -> EfcLanes:
+    """`make_efc_from_lanes` for a batch-first Contact (fields (B, K, ...))."""
+    return make_efc_from_lanes(m, d, s, contact_to_lanes(m, con))
 
 
 def make_efc_from_lanes(m: Model, d: Data, s: State, cl: ContactLanes) -> EfcLanes:
@@ -187,4 +198,38 @@ def make_efc_from_lanes(m: Model, d: Data, s: State, cl: ContactLanes) -> EfcLan
         neq=neqr,
         nf=nf,
         nl=nl,
+    )
+
+
+def make_efc_batched(m: Model, d: Data, s: State, con: Contact) -> Efc:
+    """Batch-first Efc (leaves (B, ...)) for a batch-first Contact, assembled
+    by `make_efc_lanes` and transposed; `is_floss`/`is_limit` mark the
+    static scalar blocks and `floss` is zero outside the friction-loss rows."""
+    el = make_efc_lanes(m, d, s, con)
+    B = s.qpos.shape[0]
+    NE = el.aref.shape[0]
+    dev = el.aref.device
+    fl = slice(el.neq, el.neq + el.nf)
+    isf = torch.zeros(NE, dtype=torch.bool, device=dev)
+    isf[fl] = True
+    isl = torch.zeros(NE, dtype=torch.bool, device=dev)
+    isl[el.neq + el.nf:el.neq + el.nf + el.nl] = True
+    floss = torch.zeros(B, NE, dtype=el.aref.dtype, device=dev)
+    floss[:, fl] = el.floss.T
+    return Efc(
+        J=el.J.permute(2, 1, 0),                           # (B, NE, nv)
+        aref=el.aref.T,
+        D=el.D.T,
+        R=el.R.T,
+        pos=el.pos.T,
+        floss=floss,
+        is_floss=isf.expand(B, NE),
+        is_limit=isl.expand(B, NE),
+        con_mu=el.con_mu.T,
+        con_uscale=el.con_uscale.permute(2, 0, 1),         # (B, K, CDIM)
+        con_active=el.con_active.T,
+        con_Dn=el.con_Dn.T,
+        neq=el.neq,
+        nf=el.nf,
+        nl=el.nl,
     )

@@ -10,7 +10,8 @@ semi-implicit Euler; ten substeps make one 0.02 s control step.
   env axis.
 * The batched engine (`forward_batched`, `step_batched`, `n_steps_batched`):
   `smooth_lanes`, `narrowphase.collide_batched_lanes` (with the hull-sweep
-  kernel), `constraint_lanes` and `solver_lanes` (with the solver kernel).
+  kernel), `constraint_lanes` and `solver_lanes` (with the solver kernel);
+  `position_stage_batched`, its kinematics and batch-first contacts.
 
 Both name their stages in profiler traces as JAX's `named_scope`s do
 (`profiling.annotate`: smooth, collide, efc, solve, integrate).
@@ -63,6 +64,14 @@ def position_stage(m: Model, s: State) -> Data:
     what the env layer reads after the substeps."""
     d = smooth.kinematics(m, s)
     return d.replace(contact=narrowphase.collide(m, d))
+
+
+def position_stage_batched(m: Model, s: State) -> Data:
+    """`position_stage` for a batched State (leaves (B, ...)): batched
+    kinematics, then the batch-first contacts of `collide_batched` (in
+    float32 one hull-sweep kernel launch on the card)."""
+    d = smooth_lanes.kinematics(m, s)
+    return d.replace(contact=narrowphase.collide_batched(m, d))
 
 
 def forward_batched(m: Model, s: State) -> Data:

@@ -1,8 +1,8 @@
 """Quaternion utilities, batch-first (MuJoCo conventions: quats are (w, x, y, z)).
 
-The port of `gym_so100_tpu/ops/quat.py` (the functions the renderer, the
-weld rows, the Cartesian env and the single-env engine need): every function takes (..., 4) quaternions and (..., 3) vectors, broadcast
-over the leading axes, and uses the same arithmetic as the JAX module.
+The port of `gym_so100_tpu/ops/quat.py`: every function takes (..., 4)
+quaternions and (..., 3) vectors, broadcast over the leading axes, and
+uses the same arithmetic as the JAX module.
 """
 
 from __future__ import annotations
@@ -42,6 +42,11 @@ def rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         vy + w * ty + (z * tx - x * tz),
         vz + w * tz + (x * ty - y * tx),
     ], dim=-1)
+
+
+def rotate_inv(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vector(s) v (..., 3) by the inverse of unit quaternion(s) q."""
+    return rotate(conj(q), v)
 
 
 def to_mat(q: torch.Tensor) -> torch.Tensor:
@@ -113,3 +118,24 @@ def normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """Quaternion(s) scaled to unit length."""
     n = torch.linalg.vector_norm(q, dim=-1, keepdim=True)
     return q / torch.clamp(n, min=eps)
+
+
+def from_euler_xyz(euler: torch.Tensor) -> torch.Tensor:
+    """MJCF "euler" angles (..., 3) (eulerseq "xyz", extrinsic) -> unit
+    quaternions (..., 4): R = Rz(ez) Ry(ey) Rx(ex), as MuJoCo composes them."""
+    ex, ey, ez = euler.unbind(-1)
+    zero, one = torch.zeros_like(ex), torch.ones_like(ex)
+    qx = from_axis_angle(torch.stack([one, zero, zero], -1), ex)
+    qy = from_axis_angle(torch.stack([zero, one, zero], -1), ey)
+    qz = from_axis_angle(torch.stack([zero, zero, one], -1), ez)
+    return mul(qz, mul(qy, qx))
+
+
+def sub_quat(qa: torch.Tensor, qb: torch.Tensor) -> torch.Tensor:
+    """MuJoCo's mju_subQuat: the rotation vector (..., 3) v with
+    integrate(qb, v, 1) = qa, v = 2 log(qb^-1 qa), along the shortest arc."""
+    qd = mul(conj(qb), qa)
+    qd = torch.where(qd[..., :1] < 0, -qd, qd)
+    vn = torch.linalg.vector_norm(qd[..., 1:], dim=-1, keepdim=True)
+    angle = 2.0 * torch.atan2(vn, qd[..., :1])
+    return qd[..., 1:] / torch.clamp(vn, min=1e-15) * angle

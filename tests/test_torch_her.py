@@ -139,7 +139,7 @@ def filled_buffers():
     then 3 finishers; E = 5, so the ring wraps."""
     rng = np.random.RandomState(2)
     bj = jax_her.HerBuffer.create(E, T, OBS, ACT, jnp.float64)
-    bt = HerBuffer(E, T, OBS, ACT, dtype=torch.float64)
+    bt = HerBuffer(E, T, OBS, ACT, dtype=torch.float64, device="cpu")
     for mask in ([1, 0, 1, 1], [0, 0, 0, 0], [1, 1, 1, 1], [0, 1, 1, 1]):
         mask = np.array(mask, bool)
         ep = _episodes(rng, 4)
@@ -156,7 +156,7 @@ def test_flush_with_more_finishers_than_episodes():
     (2 + i) mod E, as JAX's one-at-a-time flush leaves them."""
     rng = np.random.RandomState(3)
     bj = jax_her.HerBuffer.create(E, T, OBS, ACT, jnp.float64)
-    bt = HerBuffer(E, T, OBS, ACT, dtype=torch.float64)
+    bt = HerBuffer(E, T, OBS, ACT, dtype=torch.float64, device="cpu")
     first = np.array([1, 0, 1, 0, 0, 0, 0, 0], bool)     # ptr 2 first
     ep = _episodes(rng, 8)
     bj, _ = _add_jax(bj, first, ep), _add_port(bt, first, ep)

@@ -104,7 +104,8 @@ def test_collider_matches_pallas_path(setup, jax_out):
     _, mt, gx, gm = setup
     r_pos, r_nrm, r_dep, r_act, r_ids = jax_out
     t_pos, t_nrm, t_dep, t_act, t_ids = hull_lanes.collide_hulls_lanes(
-        mt, Data(geom_xpos=torch.from_numpy(gx), geom_xmat=torch.from_numpy(gm)))
+        mt, Data(geom_xpos=torch.from_numpy(gx), geom_xmat=torch.from_numpy(gm)),
+        lanes_out=True)
     np.testing.assert_array_equal(t_ids, r_ids)
     act = r_act
     assert act.any(), "test setup produced no active hull contacts"

@@ -78,7 +78,7 @@ def _batches(n, seed=3):
 def test_normalizer_matches_jax():
     rng = np.random.RandomState(0)
     nj = jax_sac.Normalizer.create(OBS, jnp.float64)
-    nt = sac.Normalizer.create(OBS, torch.float64)
+    nt = sac.Normalizer.create(OBS, torch.float64, device="cpu")
     for n in (128, 7, 64, 300):
         batch = rng.randn(n, OBS) * 3 + 1
         nj = nj.update(jnp.asarray(batch))
@@ -93,7 +93,7 @@ def test_replay_ring_matches_jax():
     cap, B = 10, 4
     rng = np.random.RandomState(1)
     bj = jax_sac.ReplayBuffer.create(cap, 3, 2, jnp.float64)
-    bt = sac.ReplayBuffer(cap, 3, 2, torch.float64)
+    bt = sac.ReplayBuffer(cap, 3, 2, torch.float64, device="cpu")
     for step in range(4):                    # 16 writes: wraps at 10
         o, a, nx = rng.randn(B, 3), rng.randn(B, 2), rng.randn(B, 3)
         r, d = rng.randn(B), rng.rand(B) < 0.5

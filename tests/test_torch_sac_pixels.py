@@ -181,7 +181,7 @@ def test_uint8_replay_ring_matches_jax():
     spec = s_j.obs_spec()
     bj = jax_sac.ReplayBuffer.create(cap, spec, ACT, jnp.float64)
     bt = sac.ReplayBuffer(cap, sac.SAC(torch_cfg(), device="cpu").obs_spec(), ACT,
-                          torch.float64)
+                          torch.float64, device="cpu")
     for _ in range(4):                        # 16 writes: wraps at 10
         o, nx = pixel_obs(rng, n), pixel_obs(rng, n)
         a, r, d = rng.randn(n, ACT), rng.randn(n), rng.rand(n) < 0.5
