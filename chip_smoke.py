@@ -4,7 +4,8 @@
 
 Phases, each printed on its own line:
  1. build both CUDA kernels from gym_so100_tpu_torch/csrc with nvcc (sm_90a)
-    and print each kernel's ptxas lines (registers, spills);
+    and print each kernel's ptxas lines (registers, spills), the Newton
+    kernel's for each instantiated nv;
  2. print the card's name and power limit (nvidia-smi);
  3. print each kernel's launch shape (envs per block, threads, dynamic
     shared memory); check each kernel against its plain PyTorch version
@@ -106,7 +107,20 @@ Phases, each printed on its own line:
     poses (slot by slot, JAX's tolerances) and from the state (the
     contacts as sets, BF_CPU_TOL); the route, its collide stage, the lanes
     collide and the hull kernel on its inputs timed with CUDA events;
-14. print the build, ptxas, launch-shape and check lines again (so that
+14. the batched lanes step of the Panda EE scene (float32, K = 24, nv =
+    15: the Newton kernel's nv = 15 build, the hull kernel at G = 31, P =
+    256, 4 envs per block): forward.n_steps_batched at 1024 envs from
+    "home" with each env's arm joints moved by a seeded draw of at most
+    0.01 rad, 4 control steps holding each mocap target on its ee, then 8
+    after moving it 3 cm along +x, counted (10 launches of each kernel per
+    control step); finite, the fingers coupled in every lane, the first 8
+    lanes' ee moved > 1.5 cm along +x; both kernels against their plain
+    versions on the state after the move (hull tables bit-equal, the
+    Newton solve by the floor rule) and timed; the first 8 lanes held to
+    the same steps on the CPU within PB_TOL, which lies above twice the
+    card's own one-ulp spread and below a planted fault (the finger
+    coupling dropped); the control step timed;
+15. print the build, ptxas, launch-shape and check lines again (so that
     the end of the output holds them), the kernel table as one JSON line
     (per kernel: the K = 16 row, the statistic its check bounds with that
     bound, the training phase's launches, check and times under
@@ -114,9 +128,11 @@ Phases, each printed on its own line:
     "pixel_env" and "train_pixels", the HER phase's launches, check and
     times under "her", and the EE phase's launches, check, times and neq
     under "ee", the multi-GPU phase's per-rank launches and times under
-    "dist", and the batch-first phase's launches and times under
-    "batch_first"), the single-env, Panda and trace phases' numbers as a
-    JSON line before it, the card, then the result line
+    "dist", the batch-first phase's launches and times under
+    "batch_first", and the batched Panda phase's launches, check, times
+    and nv under "panda_batched"), the single-env, Panda, batched Panda
+    and trace phases' numbers as a JSON line before it, the card, then the
+    result line
     {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -125,6 +141,7 @@ with code 2 before doing anything.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -236,6 +253,21 @@ BF_TOL = {"dist": (1e-6, 1e-7), "pos": (1e-6, 1e-6), "frame": (1e-5, 1e-6)}
 # carries into the geom poses (the CPU tests hold XLA's to torch's within
 # 2e-6); poses, and the matched contacts' depth, point and normal
 BF_CPU_TOL = 1e-5
+# the batched Panda phase: forward.n_steps_batched on the Panda EE scene
+# (float32, K = PANDA_K, nv = 15) at 1024 envs, the phase-11 moves
+PB_ENVS = 1024
+PB_JITTER = 0.01      # rad: a seeded draw on each env's arm joints
+PB_TRACKED = 8        # lanes held to the JAX test's criteria and to the CPU
+# the first PB_TRACKED lanes against the same steps on the CPU (the plain
+# solve there): as PANDA_TOL, the bound must lie above twice the card's own
+# spread under a one-ulp move of the start and below a planted fault (the
+# finger coupling dropped, 0.178 after the 4 hold steps).  The batched
+# step parts from itself far more than the single env (1.2e-3): one-ulp
+# moves of the start grew to 2.25e-2 over the 12 steps on an NVIDIA H100
+# 80GB HBM3 (700 W).  The phase logs where, by joint and by lane: the 6-dof
+# weld leaves the 7-dof arm one null-space motion (turning the arm about
+# its ee), which only the joint servos hold
+PB_TOL = 0.1
 RECAP = []   # the build, launch-shape and check lines, printed again at the end
 
 
@@ -455,11 +487,11 @@ def check_solver(env, es, timed, floor_samples=0):
     NE, B = efc.aref.shape
     K = efc.con_mu.shape[0]
     out = torch.empty(2 * m.nv + 1, B, device=a0.device)
-    log_shape("newton_solve", kernels.launch_shape(
-        "gst_newton_solve", NE, efc.neq, efc.nf, efc.nl, K), B)
+    log_shape(f"newton_solve (nv = {m.nv})", kernels.launch_shape(
+        "gst_newton_solve", m.nv, NE, efc.neq, efc.nf, efc.nl, K), B)
     ms = cuda_ms(lambda: kernels.launch(
         "gst_newton_solve", inp["J"], inp["aref"], inp["D"], inp["aux"], inp["us"],
-        inp["qM"], inp["x0"], inp["warm"], out, NE, efc.neq, efc.nf,
+        inp["qM"], inp["x0"], inp["warm"], out, m.nv, NE, efc.neq, efc.nf,
         efc.nl, K, B, *solver_lanes.budgets(m, torch.float32)), 20)
     plain_ms = cuda_ms(lambda: solver_lanes.solve_plain(m, qM, a0, efc, warm), 3)
     # least work: inputs read once, output written once; per executed
@@ -1492,8 +1524,8 @@ def run_panda(card):
     spread under a one-ulp move of the start and below the card's run with
     a planted fault (the finger-coupling equality dropped, over the hold
     steps); and the first PANDA64_STEPS in float64 hold the card to the
-    CPU as phase 9 does.  Neither kernel launches (nv = 15: the single-env
-    engine)."""
+    CPU as phase 9 does.  Neither kernel launches: the single-env engine
+    runs neither (the batched Panda step does: run_panda_batched)."""
     import dataclasses
 
     import numpy as np
@@ -1788,6 +1820,170 @@ def run_batch_first(env, es, card):
             "newton_solve": dict(launches=0)}
 
 
+def _panda_batched_start(m, aux, B, ulp=False):
+    """B envs of the Panda scene at "home", each env's arm joints moved by a
+    seeded draw of at most PB_JITTER rad (with `ulp`, every nonzero qpos
+    then one ulp up), each mocap target on its own ee site."""
+    import numpy as np
+    import torch
+
+    from gym_so100_tpu_torch.models.scene import State
+    from gym_so100_tpu_torch.ops import forward as fwd
+    from gym_so100_tpu_torch.ops import smooth_lanes
+
+    kq, kc = aux["keyframes"]["home"]
+    qpos = np.tile(np.asarray(kq, np.float64), (B, 1))
+    qpos[:, :7] += np.random.RandomState(SEED + 11).uniform(
+        -PB_JITTER, PB_JITTER, (PB_ENVS, 7))[:B]
+    qpos = torch.tensor(qpos, dtype=m.dtype, device=m.device)
+    if ulp:
+        qpos = torch.where(qpos != 0, torch.nextafter(
+            qpos, torch.full_like(qpos, float("inf"))), qpos)
+    one = fwd.make_state(m, qpos=kq, ctrl=kc)
+    s = State(qpos=qpos, qvel=torch.zeros(B, m.nv, dtype=m.dtype, device=m.device),
+              ctrl=one.ctrl.expand(B, -1).clone(),
+              mocap_pos=one.mocap_pos.expand(B, -1, -1).clone(),
+              mocap_quat=one.mocap_quat.expand(B, -1, -1).clone(),
+              qacc_warmstart=torch.zeros(B, m.nv, dtype=m.dtype, device=m.device))
+    ee = m.site_id("ee_site")
+    return s.replace(mocap_pos=smooth_lanes.kinematics(m, s).site_xpos[:, ee][:, None].clone())
+
+
+def _panda_batched_run(m, s, hold=PANDA_HOLD, move=PANDA_MOVE):
+    """`hold` control steps of n_steps_batched, then each target 3 cm along
+    +x for `move` steps.  Returns (the first PB_TRACKED lanes' qpos per step
+    (float64, CPU), the state after the last step, ee x of every lane after
+    the hold and at the end, ms per step, the largest ncon)."""
+    import torch
+
+    from gym_so100_tpu_torch.ops import forward as fwd
+    from gym_so100_tpu_torch.ops import smooth_lanes
+
+    ee = m.site_id("ee_site")
+    kin_x = lambda s: smooth_lanes.kinematics(m, s).site_xpos[:, ee, 0].clone()
+    sync = torch.cuda.synchronize if m.device.type == "cuda" else (lambda: None)
+    qs, ms, held, ncon = [], [], None, 0
+    for i in range(hold + move):
+        if i == hold:
+            held = kin_x(s)
+            s = s.replace(mocap_pos=s.mocap_pos + torch.tensor(
+                [0.03, 0.0, 0.0], dtype=s.mocap_pos.dtype, device=m.device))
+        sync()
+        t0 = time.perf_counter()
+        s, nc = fwd.n_steps_batched(m, s, 10)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        qs.append(s.qpos[:PB_TRACKED].double().cpu())
+        ncon = max(ncon, int(nc.max()))
+    return torch.stack(qs), s, held, kin_x(s), ms, ncon
+
+
+def run_panda_batched(card):
+    """The batched lanes step of the Panda EE scene on the card: PB_ENVS
+    envs, K = PANDA_K, float32, nv = 15; PANDA_HOLD control steps holding
+    each mocap target on its ee, then PANDA_MOVE after moving it 3 cm along
+    +x, counted (10 launches of each kernel per control step).  Finite, the
+    fingers coupled in every lane, the first PB_TRACKED lanes' ee moved >
+    1.5 cm along +x (tests/test_panda.py's criteria); both kernels against
+    their plain versions on the state after the move (the hull tables
+    bit-equal, the Newton solve by the floor rule), timed; the first
+    PB_TRACKED lanes held to the same steps on the CPU within PB_TOL, above
+    twice the card's own one-ulp spread and below a planted fault.
+    Returns {kernel: dict(launches, check and time fields, nv)} and the
+    phase's numbers."""
+    import dataclasses
+    import types
+
+    import numpy as np
+    import torch
+
+    from gym_so100_tpu_torch.models.builder import PANDA_XML, build_model
+    from gym_so100_tpu_torch.ops import solver_lanes
+    from gym_so100_tpu_torch.ops.collision import hull_lanes
+
+    m, aux = build_model(PANDA_XML, max_contacts=PANDA_K, device="cuda")
+    tb = hull_lanes.hull_tables(m)
+    log(f"Panda batched: {PB_ENVS} envs, K {PANDA_K}, float32, nv {m.nv}, "
+        f"{len(m.eq_site1)} weld and {len(m.eq_jnt_q1)} joint equality; pairs "
+        f"{len(m.pairs.box_box)} box-box / {len(m.pairs.hull_box)} hull-box / "
+        f"{len(m.pairs.hull_hull)} hull-hull; hull tables G {tb.G}, ND {tb.D.shape[0]}, "
+        f"P {tb.P}; {PANDA_HOLD} hold + {PANDA_MOVE} move control steps", recap=True)
+    s0 = _panda_batched_start(m, aux, PB_ENVS)
+    hull_lanes.sweep_h.launches = 0
+    solver_lanes.solve_fused.launches = 0
+    qs, s, held, end, ms, ncon = _panda_batched_run(m, s0)
+    torch.cuda.synchronize()
+    launches = {"hull_sweep": hull_lanes.sweep_h.launches,
+                "newton_solve": solver_lanes.solve_fused.launches}
+    n_steps = PANDA_HOLD + PANDA_MOVE
+    for name, n in launches.items():
+        assert n == 10 * n_steps, f"Panda batched: {name} {n} launches, expected {10 * n_steps}"
+    assert bool(torch.isfinite(s.qpos).all() and torch.isfinite(s.qvel).all()), \
+        "Panda batched: state not finite"
+    q1 = s.qpos[:, m.jnt_qposadr[m.joint_id("finger_joint1")]]
+    q2 = s.qpos[:, m.jnt_qposadr[m.joint_id("finger_joint2")]]
+    gap = float((q1 - q2).abs().max())
+    dx = end - held
+    n = PB_TRACKED
+    step = float(np.mean(ms[1:]))
+    log(f"Panda batched: launches {launches}, ncon max {ncon}; finger gap max over "
+        f"{PB_ENVS} lanes {gap:.2e} (bound 5e-3); ee moved along x: min "
+        f"{float(dx.min()):+.4f} median {float(dx.median()):+.4f} m, first {n} "
+        f"{[round(x, 4) for x in dx[:n].tolist()]} (bound > 0.015); control step "
+        f"{step:.1f} ms (host clock, mean of steps 2-{n_steps}; the first {ms[0]:.1f} ms), "
+        f"{PB_ENVS / step * 1e3:.1f} env-steps/s; on {card}", recap=True)
+    assert gap < 5e-3, "Panda batched: the fingers decoupled"
+    assert bool((dx[:n] > 0.015).all()), "Panda batched: an ee did not follow along +x"
+
+    env = types.SimpleNamespace(m=m)
+    moved = types.SimpleNamespace(physics=s)
+    rows = {"hull_sweep": check_hull(env, moved, timed=True),
+            "newton_solve": check_solver(env, moved, timed=True,
+                                         floor_samples=FLOOR_SAMPLES)}
+    assert rows["hull_sweep"]["max_abs_err"] == 0.0, "Panda batched: hull tables differ"
+
+    # the first lanes on the CPU, and the witnesses of PB_TOL: the card
+    # against itself from a one-ulp start, and the finger coupling dropped
+    t0 = time.perf_counter()
+    m_cpu, aux_cpu = build_model(PANDA_XML, max_contacts=PANDA_K, device="cpu")
+    q_cpu = _panda_batched_run(m_cpu, _panda_batched_start(m_cpu, aux_cpu, n))[0]
+    cpu_s = time.perf_counter() - t0
+    dev_q = (qs - q_cpu).abs()                          # (steps, lanes, nq)
+    spread_q = (_panda_batched_run(
+        m, _panda_batched_start(m, aux, PB_ENVS, ulp=True))[0] - qs).abs()
+    dev, spread = float(dev_q.max()), float(spread_q.max())
+    # where the two peak: each joint's largest qpos difference (the free
+    # joint's 7 entries as one), and each lane's
+    names = m.names_joint
+    adr = list(m.jnt_qposadr) + [m.nq]
+    by_joint = lambda d: {names[j]: float(d[..., adr[j]:adr[j + 1]].max())
+                          for j in range(len(names))}
+    fmt = lambda x: "{" + ", ".join(f"{k}: {v:.1e}" for k, v in x.items()) + "}"
+    faulty = dataclasses.replace(m, eq_jnt_q1=(), eq_jnt_q2=(), eq_jnt_v1=(), eq_jnt_v2=())
+    fault_dev = float((_panda_batched_run(
+        faulty, _panda_batched_start(m, aux, n), PANDA_HOLD, 0)[0]
+        - q_cpu[:PANDA_HOLD]).abs().max())
+    log(f"Panda batched: first {n} lanes, card vs CPU max |qpos difference| {dev:.3e} "
+        f"over the {n_steps} steps (bound {PB_TOL:g}); the card's own one-ulp spread "
+        f"{spread:.3e}, the card with the finger coupling dropped vs the CPU's sound run "
+        f"{fault_dev:.3e} over the {PANDA_HOLD} hold steps; CPU run {cpu_s:.1f} s; on "
+        f"{card}", recap=True)
+    log(f"Panda batched: by joint, card vs CPU {fmt(by_joint(dev_q))}; one-ulp spread "
+        f"{fmt(by_joint(spread_q))}; by lane, card vs CPU "
+        f"{[float(f'{x:.1e}') for x in dev_q.amax((0, 2)).tolist()]}, one-ulp spread "
+        f"{[float(f'{x:.1e}') for x in spread_q.amax((0, 2)).tolist()]}", recap=True)
+    assert dev <= PB_TOL, f"Panda batched: {dev} from the CPU"
+    assert 2 * spread <= PB_TOL < fault_dev, (spread, fault_dev)
+    log(f"Panda batched kernels: hull {rows['hull_sweep']['ms']:.4f} ms, Newton (nv = "
+        f"{m.nv}) {rows['newton_solve']['ms']:.4f} ms per launch, x 10 = "
+        f"{10 * (rows['hull_sweep']['ms'] + rows['newton_solve']['ms']) / step:.4f} of a "
+        f"control step; on {card}", recap=True)
+    numbers = dict(step_ms=step, env_steps_per_s=PB_ENVS / step * 1e3, finger_gap=gap,
+                   ee_dx_min=float(dx.min()), ncon_max=ncon, max_abs_dev_cpu=dev,
+                   bound=PB_TOL, one_ulp_spread=spread, fault_max_abs_dev_cpu=fault_dev)
+    return {name: dict(launches=launches[name], nv=m.nv, **rows[name]) for name in rows}, numbers
+
+
 def main():
     try:
         import torch
@@ -1817,10 +2013,13 @@ def main():
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc "
         f"{kernels.build_info.get('seconds', 0.0):.1f} s) -> {kernels.build_info['path']}",
         recap=True)
-    # ptxas prints, per kernel, its name, then its spill and register lines
+    # ptxas prints, per kernel, its name, then its spill and register lines;
+    # the Newton kernel once per instantiated nv
     for line in kernels.build_info.get("log", "").splitlines():
         if "Compiling entry function" in line or "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}", recap=True)
+            nv = re.search(r"newton_solve_kernelILi(\d+)E", line)
+            log(f"  ptxas: {line.strip()}" + (f" [Newton, nv = {nv[1]}]" if nv else ""),
+                recap=True)
 
     # 2. the card
     smi = gpu_name_and_power()
@@ -1931,7 +2130,12 @@ def main():
     batch_first = run_batch_first(env, landed, card)
     log(f"batch-first phase: {time.perf_counter() - t0:.1f} s wall time", recap=True)
 
-    # 14. results
+    # 14. the batched Panda step (nv = 15), counted
+    t0 = time.perf_counter()
+    panda_batched, pb_numbers = run_panda_batched(card)
+    log(f"Panda batched phase: {time.perf_counter() - t0:.1f} s wall time", recap=True)
+
+    # 15. results
     for line in RECAP:
         log(f"recap: {line}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
@@ -1941,7 +2145,8 @@ def main():
                   "check_value", "check_bound")
     ee_keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "check_value", "check_bound", "neq")
-    print(json.dumps({"single_env": single, "panda": panda, "trace": traced}), flush=True)
+    print(json.dumps({"single_env": single, "panda": panda, "panda_batched": pb_numbers,
+                      "trace": traced}), flush=True)
     print(json.dumps({"kernels": [
         {**{k: row[k] for k in keys},
          "train_k32": {k: train[row["name"]][k] for k in train_keys},
@@ -1950,7 +2155,8 @@ def main():
          "her": {k: her[row["name"]][k] for k in train_keys},
          "ee": {k: ee[row["name"]][k] for k in ee_keys},
          "dist": dist_rows[row["name"]],
-         "batch_first": batch_first[row["name"]]}
+         "batch_first": batch_first[row["name"]],
+         "panda_batched": {k: panda_batched[row["name"]][k] for k in train_keys + ("nv",)}}
         for row in rows]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

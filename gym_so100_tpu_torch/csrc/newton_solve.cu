@@ -6,19 +6,19 @@
 // elliptic-cone contact rows (top/middle/bottom zones) plus
 // 1/2 (x - x0)' M (x - x0): warmstart-vs-x0 pick by total cost; then up to
 // max_iters Newton iterations, each assembling cost, gradient and Hessian,
-// factoring the 12x12 Hessian (Cholesky, steepest-descent guard when the
+// factoring the nv x nv Hessian (Cholesky, steepest-descent guard when the
 // direction does not descend), bracketing (bracket_len doublings) and
 // regula falsi (ls_len steps) on the directional derivative, and stopping a
 // lane once improvement or gradient norm (scaled) falls below tol.  Frozen
 // lanes keep x and their iteration count, as in the masked scan.
 //
 // What bounds it on an H100: latency.  The inputs are ~5.3 KB per env at
-// K = 16 (J alone is 12 x 82 floats) and the arithmetic ~0.3 MFLOP per env,
-// but every step of a Newton iteration depends on the one before.  The
-// first design ran one thread per env: 128 one-warp blocks at B = 4096 (one
-// warp on most SMs, nothing to hide a load's latency), 255 registers with
-// spills, every row pass serial in that thread and read from device memory,
-// and jar/djar in (NE, B) scratch in device memory.
+// nv = 12, K = 16 (J alone is 12 x 82 floats) and the arithmetic ~0.3
+// MFLOP per env, but every step of a Newton iteration depends on the one
+// before.  The first design ran one thread per env: 128 one-warp blocks
+// at B = 4096 (one warp on most SMs, nothing to hide a load's latency),
+// 255 registers with spills, every row pass serial in that thread and read
+// from device memory, and jar/djar in (NE, B) scratch in device memory.
 //
 // Design: one warp per env, ENVS = 4 envs (warps) per block.
 // - Each env's inputs (J, aref, D, aux, uscale, the qM triangle, x0, warm)
@@ -45,52 +45,71 @@
 //   weights (h of a scalar row, Dc of a top-zone contact row) and its
 //   contacts' middle-zone records (kz, wmu, uhat) to shared memory.  The
 //   warp lists the rows of nonzero weight by ballot (about 35 of 82), then
-//   lane t owns triangle entries t, t+32, t+64 (in registers) and sums
-//   over the list: h_r J_ir J_lr, plus kz a_i a_l + wmu (S_i.S_l -
-//   proj_i proj_l) for each middle-zone contact.
+//   lane t owns triangle entries t, t+32, ... (ceil(nv(nv+1)/64) of them,
+//   in registers) and sums over the list: h_r J_ir J_lr, plus kz a_i a_l
+//   + wmu (S_i.S_l - proj_i proj_l) for each middle-zone contact.
 // - The Cholesky runs right-looking on those register-held entries: per
 //   column the owner of the pivot broadcasts it, the column's owners scale
 //   it and publish it to shared memory, and every lane updates its entries
 //   to the right; the products are subtracted in the same order as in a
 //   serial left-looking Cholesky.  The triangular solves and the products
-//   with M run on lanes 0-11 (one row each) with shuffle broadcasts.
-// - Occupancy: about 7.9 KB of shared memory per env (31.9 KB per 4-env
-//   block) and __launch_bounds__(128, 4), so at most 128 registers and no
-//   spills (x, x_new and the direction are kept in shared memory, and the
-//   jar loop unrolls 6-fold, to stay there): 4 blocks, 16 warps, per SM,
-//   limited by registers; 1024 blocks at B = 4096.  A block holds its
-//   slot until its slowest env is done, and Newton iteration counts run
-//   from 1 to 10, so the slowest envs set the time; 4-env blocks free
-//   their slot sooner than 8-env blocks, and timed 3% faster on the H100
-//   (PERF.md).  Tensor cores stay out: TF32
-//   keeps about three digits, and the products are 12 x 12 per env.
+//   with M run on lanes 0 to nv-1 (one row each) with shuffle broadcasts.
+// - nv is a template parameter (NV <= 16: a triangle entry's row and
+//   column are packed into 4 bits each), since the per-lane arrays (J'g,
+//   the gradient, the direction, the force) and the entries a lane owns
+//   are sized by it and must stay in registers.  Three instantiations are
+//   built, 12 (the SO100 scenes), 15 (the Panda) and 16; a problem of
+//   another nv runs on the next larger one, padded (see the kernel).  The
+//   nvcc build of both kernels took 20.0 s with these three against 8.1 s
+//   with nv = 12 alone and 52.1 s with all 16 (PERF.md).
+// - Occupancy (nv = 12, K = 16): about 7.9 KB of shared memory per env
+//   (31.9 KB per 4-env block) and __launch_bounds__(128, 4), so at most
+//   128 registers and no spills (x, x_new and the direction are kept in
+//   shared memory, and the jar loop unrolls 6-fold, to stay there): 4
+//   blocks, 16 warps, per SM, limited by registers; 1024 blocks at B =
+//   4096.  A block holds its slot until its slowest env is done, and
+//   Newton iteration counts run from 1 to 10, so the slowest envs set the
+//   time; 4-env blocks free their slot sooner than 8-env blocks, and
+//   timed 3% faster on the H100 (PERF.md).  Larger nv keep fewer warps per SM (warps_per_sm).  Tensor
+//   cores stay out: TF32 keeps about three digits, and the products are
+//   at most 16 x 16 per env.
 //
-// Input layout (as the Pallas kernel took it): J (NV*NE, B) row v*NE + r;
+// Input layout (as the Pallas kernel took it): J (nv*NE, B) row v*NE + r;
 // aref, D (NE, B); contact rows COMPONENT-major (row ns + j*K + k); aux rows
 // [floss (nf) | R_f (nf) | mu (K) | Dn (K) | scale]; us (CDIM*K, B);
-// qM lower triangle (NTRI, B) row by row; x0, warm (NV, B).  Output
-// (2*NV + 1, B): qacc, qfrc_constraint, niter.
+// qM lower triangle (nv(nv+1)/2, B) row by row; x0, warm (nv, B).  Output
+// (2*nv + 1, B): qacc, qfrc_constraint, niter.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int NV = 12;
-constexpr int NTRI = NV * (NV + 1) / 2;
 constexpr int CDIM = 4;
 constexpr int WARP = 32;
 constexpr int ENVS = 4;            // envs (one warp each) per block
-constexpr int WARPS_PER_SM = 16;   // at most 128 registers a thread
 constexpr int CZ = 6;              // contact record: middle?, kz, wmu, uhat[3]
-constexpr int NOUT = 2 * NV + 1;
 constexpr float MINVAL = 1e-15f;
 constexpr unsigned FULL = 0xffffffffu;
 
 __host__ __device__ constexpr int tri(int i, int j) { return i * (i + 1) / 2 + j; }
+__host__ __device__ constexpr int ntri(int n) { return n * (n + 1) / 2; }
+
+// Warps an SM holds for the NV instantiation, set by the registers a thread
+// may use (65,536 / 32 / warps): 16 warps leave 128 registers, which holds
+// nv = 12 without spills; the longer per-lane arrays of larger nv take
+// more.  At 12 warps (168 registers) nv = 15 takes 155 and nv = 16 163,
+// without spills; at 16 warps both spilled (80-112 bytes) and nv = 15 ran
+// 3% slower on the Panda (PERF.md).
+__host__ __device__ constexpr int warps_per_sm(int NV) { return NV <= 12 ? 16 : 12; }
 
 // Sizes and the float offsets of one env's arrays in shared memory.
+template <int NV>
 struct Layout {
+    static constexpr int NTRI = ntri(NV);
+    static constexpr int NOUT = 2 * NV + 1;
     int NE, NEp, neq, nf, ns, K;
     int J, aref, D, aux, us, qM, x0, warm, jar, djar, hw, rl, cz, A, dg, o, xs, xn, dn, size;
 
@@ -119,9 +138,10 @@ struct Layout {
     }
 };
 
+template <int NV>
 struct Env {
     float* s;                      // this env's shared-memory block
-    Layout L;
+    Layout<NV> L;
 
     __device__ float at(int off, int r) const { return s[off + r]; }
     __device__ float Jv(int v, int r) const { return s[L.J + v * L.NEp + r]; }
@@ -171,7 +191,8 @@ struct Cone {
     float T, w, kz, mu;
     bool top, middle;
 
-    __device__ void eval(const Env& e, int k, const float* jc) {
+    template <class E>
+    __device__ void eval(const E& e, int k, const float* jc) {
         mu = e.mu(k);
         const float Dn = e.Dn(k);
 #pragma unroll
@@ -229,7 +250,8 @@ __device__ float wsum(float v) {
 
 // My = M y: lane i < NV computes entry i, then every lane gets all NV
 // entries by broadcast (the same bits in every lane).
-__device__ void mat_vec(const Env& e, int lane, const float* y, float* My) {
+template <int NV>
+__device__ void mat_vec(const Env<NV>& e, int lane, const float* y, float* My) {
     float mi = 0.f;
     if (lane < NV) {
 #pragma unroll
@@ -240,7 +262,8 @@ __device__ void mat_vec(const Env& e, int lane, const float* y, float* My) {
 }
 
 // dx' M dx for dx = x - x0, and M dx (into Mdx), in every lane.
-__device__ float quad_form(const Env& e, int lane, const float* x, float* Mdx) {
+template <int NV>
+__device__ float quad_form(const Env<NV>& e, int lane, const float* x, float* Mdx) {
     float dx[NV];
 #pragma unroll
     for (int i = 0; i < NV; ++i) dx[i] = x[i] - e.at(e.L.x0, i);
@@ -256,7 +279,8 @@ __device__ float quad_form(const Env& e, int lane, const float* x, float* Mdx) {
 // broadcasts, the other lanes update their residual.  The forward pass
 // subtracts in the order of a serial row-by-row solve, the backward pass
 // from the last column down.  Every lane ends with all of d.
-__device__ void chol_solve(const Env& e, int lane, const float* g, float* d) {
+template <int NV>
+__device__ void chol_solve(const Env<NV>& e, int lane, const float* g, float* d) {
     const float* A = e.s + e.L.A;
     float r = 0.f;
 #pragma unroll
@@ -283,8 +307,8 @@ __device__ void chol_solve(const Env& e, int lane, const float* g, float* d) {
 // over the lanes left without a contact (all lanes when K >= 32), so at
 // K = 16 no lane carries a contact and a scalar row: lanes 0-15 take one
 // contact each, lanes 16-31 the 18 scalar rows.
-template <class S, class C>
-__device__ void for_units(const Env& e, int lane, S scalar, C contact) {
+template <int NV, class S, class C>
+__device__ void for_units(const Env<NV>& e, int lane, S scalar, C contact) {
     for (int k = lane; k < e.L.K; k += WARP) contact(k);
     const bool shared = e.L.K < WARP;
     int r = shared ? lane - e.L.K : lane;
@@ -293,7 +317,8 @@ __device__ void for_units(const Env& e, int lane, S scalar, C contact) {
 }
 
 // Total cost at x: constraint cost + 1/2 (x - x0)' M (x - x0).
-__device__ float cost_of(const Env& e, int lane, const float* x) {
+template <int NV>
+__device__ float cost_of(const Env<NV>& e, int lane, const float* x) {
     float cs = 0.f;
     for_units(e, lane, [&](int u) {
             float g, h, c;
@@ -313,7 +338,8 @@ __device__ float cost_of(const Env& e, int lane, const float* x) {
 }
 
 // Directional derivative along djar at step alpha (each lane its own rows).
-__device__ float d1_of(const Env& e, int lane, float alpha, float c1, float c2) {
+template <int NV>
+__device__ float d1_of(const Env<NV>& e, int lane, float alpha, float c1, float c2) {
     float d1 = 0.f;
     for_units(e, lane, [&](int u) {
             const float dj = e.at(e.L.djar, u);
@@ -346,9 +372,10 @@ __device__ float falsi(float lo, float hi, float dlo, float dhi) {
 
 // Row pass at x: writes jar and the Hessian weights of this lane's rows,
 // returns the constraint cost and J'g (gcon), both summed over the warp.
-__device__ float assemble_rows(const Env& e, int lane, const float* x, float* gcon) {
+template <int NV>
+__device__ float assemble_rows(const Env<NV>& e, int lane, const float* x, float* gcon) {
     float* s = e.s;
-    const Layout& L = e.L;
+    const Layout<NV>& L = e.L;
     float cl = 0.f;
 #pragma unroll
     for (int v = 0; v < NV; ++v) gcon[v] = 0.f;
@@ -397,15 +424,20 @@ __device__ float assemble_rows(const Env& e, int lane, const float* x, float* gc
     return wsum(cl);
 }
 
-// The entries of the 78-entry lower triangle that a lane owns:
-// t = lane, lane + 32, lane + 64 (the last only for lanes 0-13), each kept
-// as (i << 4) | l, or -1 where t >= NTRI (three registers, not nine).
+// The entries of the NTRI-entry lower triangle that a lane owns: t = lane
+// + m * 32 for m < SLOTS, each kept as (i << 4) | l, or -1 where t >= NTRI.
+// SLOTS = ceil(NTRI / 32): 3 at nv = 12 (78 entries), 4 at nv = 15 (120),
+// 5 at nv = 16 (136).
+template <int NV>
 struct Owned {
-    int il[3];
+    static_assert(NV <= 16, "Owned packs a row and a column index into 4 bits each");
+    static constexpr int NTRI = ntri(NV);
+    static constexpr int SLOTS = (NTRI + WARP - 1) / WARP;
+    int il[SLOTS];
 
     __device__ explicit Owned(int lane) {
 #pragma unroll
-        for (int m = 0; m < 3; ++m) {
+        for (int m = 0; m < SLOTS; ++m) {
             const int t = lane + m * WARP;
             int r = 0;
             while (t < NTRI && tri(r + 1, 0) <= t) ++r;
@@ -416,16 +448,16 @@ struct Owned {
     __device__ int i(int m) const { return ok(m) ? il[m] >> 4 : 0; }
     __device__ int l(int m) const { return ok(m) ? il[m] & 15 : 0; }
 };
-static_assert(NV <= 16, "Owned packs a row and a column index into 4 bits each");
 
 // This lane's entries of A = M + H (into a), from the weights of the row
 // pass, and the diagonal of A into dg.  The warp first lists the rows of
 // nonzero weight (inactive and bottom-zone rows drop out: about 35 of the
 // 82 at the SO100 scene), then one pass over that list serves all three
 // entries.
-__device__ void assemble_hessian(const Env& e, int lane, const Owned& own, float* a) {
+template <int NV>
+__device__ void assemble_hessian(const Env<NV>& e, int lane, const Owned<NV>& own, float* a) {
     float* s = e.s;
-    const Layout& L = e.L;
+    const Layout<NV>& L = e.L;
     // the rows of nonzero weight, in ascending order (ballot compaction)
     int* rows = reinterpret_cast<int*>(s + L.rl);
     int n = 0;
@@ -438,14 +470,14 @@ __device__ void assemble_hessian(const Env& e, int lane, const Owned& own, float
     }
     __syncwarp();
 #pragma unroll
-    for (int m = 0; m < 3; ++m) a[m] = 0.f;
+    for (int m = 0; m < Owned<NV>::SLOTS; ++m) a[m] = 0.f;
     // diagonal weights: h of a scalar row, Dc of a top-zone contact row
 #pragma unroll 2
     for (int q = 0; q < n; ++q) {
         const int r = rows[q];
         const float wr = s[L.hw + r];
 #pragma unroll
-        for (int m = 0; m < 3; ++m) {
+        for (int m = 0; m < Owned<NV>::SLOTS; ++m) {
             const float wi = wr * e.Jv(own.i(m), r);
             a[m] += wi * e.Jv(own.l(m), r);
         }
@@ -462,7 +494,7 @@ __device__ void assemble_hessian(const Env& e, int lane, const Owned& own, float
         const float gu[CDIM] = {-usj[0], mu * rec[3] * usj[1],
                                 mu * rec[4] * usj[2], mu * rec[5] * usj[3]};
 #pragma unroll
-        for (int m = 0; m < 3; ++m) {
+        for (int m = 0; m < Owned<NV>::SLOTS; ++m) {
             float Ji[CDIM], Jl[CDIM];
 #pragma unroll
             for (int j = 0; j < CDIM; ++j) {
@@ -484,7 +516,7 @@ __device__ void assemble_hessian(const Env& e, int lane, const Owned& own, float
         }
     }
 #pragma unroll
-    for (int m = 0; m < 3; ++m) {
+    for (int m = 0; m < Owned<NV>::SLOTS; ++m) {
         a[m] = e.M(own.i(m), own.l(m)) + a[m];
         if (own.ok(m) && own.i(m) == own.l(m)) s[L.dg + own.i(m)] = a[m];
     }
@@ -497,7 +529,8 @@ __device__ void assemble_hessian(const Env& e, int lane, const Owned& own, float
 // right of column j by A[i][l] -= L[i][j] L[l][j].  Each entry sees the
 // same products subtracted in the same order as in a serial left-looking
 // Cholesky, so the factor has the same bits.
-__device__ void cholesky(const Env& e, int lane, const Owned& own, float* a, float tiny) {
+template <int NV>
+__device__ void cholesky(const Env<NV>& e, int lane, const Owned<NV>& own, float* a, float tiny) {
     float* A = e.s + e.L.A;
 #pragma unroll
     for (int j = 0; j < NV; ++j) {
@@ -507,7 +540,7 @@ __device__ void cholesky(const Env& e, int lane, const Owned& own, float* a, flo
         d = __shfl_sync(FULL, d, owner);
         const float inv = 1.f / d;
 #pragma unroll
-        for (int m = 0; m < 3; ++m) {
+        for (int m = 0; m < Owned<NV>::SLOTS; ++m) {
             if (own.ok(m) && own.l(m) == j) {
                 a[m] = own.i(m) == j ? d : a[m] * inv;
                 A[tri(own.i(m), j)] = a[m];
@@ -515,7 +548,7 @@ __device__ void cholesky(const Env& e, int lane, const Owned& own, float* a, flo
         }
         __syncwarp();
 #pragma unroll
-        for (int m = 0; m < 3; ++m) {
+        for (int m = 0; m < Owned<NV>::SLOTS; ++m) {
             if (own.ok(m) && own.l(m) > j)
                 a[m] -= A[tri(own.i(m), j)] * A[tri(own.l(m), j)];
         }
@@ -523,10 +556,11 @@ __device__ void cholesky(const Env& e, int lane, const Owned& own, float* a, flo
     __syncwarp();
 }
 
-__device__ void solve_env(const Env& e, int lane, int max_iters, int ls_len,
+template <int NV>
+__device__ void solve_env(const Env<NV>& e, int lane, int max_iters, int ls_len,
                           int bracket_len, float tol)
 {
-    const Layout& L = e.L;
+    const Layout<NV>& L = e.L;
     const float scl = e.at(L.aux, 2 * L.nf + 2 * L.K);
     const float tiny = sqrtf(1.17549435e-38f);   // sqrt(FLT_MIN)
 
@@ -547,8 +581,8 @@ __device__ void solve_env(const Env& e, int lane, int max_iters, int ls_len,
         float gcon[NV];
         const float cost_con = assemble_rows(e, lane, x, gcon);
         __syncwarp();
-        const Owned own(lane);
-        float a[3];
+        const Owned<NV> own(lane);
+        float a[Owned<NV>::SLOTS];
         assemble_hessian(e, lane, own, a);
 
         // ---- cost, gradient, Newton direction ----
@@ -695,64 +729,120 @@ __device__ void stage(float* smem, int env_floats, int off, const float* __restr
     }
 }
 
-__global__ void __launch_bounds__(ENVS * WARP, WARPS_PER_SM / ENVS) newton_solve_kernel(
-    Inputs in, float* __restrict__ out, Layout L, int B,
+// Block-wide fill of `n` floats at `off` of every env's block with f(i).
+template <class F>
+__device__ void fill(float* smem, int env_floats, int off, int n, F f) {
+    for (int q = threadIdx.x; q < n * ENVS; q += blockDim.x) {
+        const int i = q / ENVS, e = q - i * ENVS;
+        smem[e * env_floats + off + i] = f(i);
+    }
+}
+
+// A problem of nv < NV dofs runs padded to NV: the padded dofs get J rows
+// of 0, a qM block of the identity (diagonal 1, off-diagonal 0) and 0 in
+// x0 and warm.  Their gradient, direction and factor rows are then 0 (the
+// factor's diagonal 1), every sum over the real dofs is the unpadded one,
+// and the output keeps the real dofs only.
+template <int NV>
+__global__ void __launch_bounds__(ENVS * WARP, warps_per_sm(NV) / ENVS) newton_solve_kernel(
+    Inputs in, float* __restrict__ out, Layout<NV> L, int nv, int B,
     int max_iters, int ls_len, int bracket_len, float tol)
 {
     extern __shared__ float smem[];
     const int b0 = blockIdx.x * ENVS;
     const int naux = 2 * L.nf + 2 * L.K + 1;
-    stage(smem, L.size, L.J, in.J, NV * L.NE, L.NE, L.NEp, b0, B);
+    const int tri_nv = ntri(nv);
+    stage(smem, L.size, L.J, in.J, nv * L.NE, L.NE, L.NEp, b0, B);
     stage(smem, L.size, L.aref, in.aref, L.NE, L.NE, 0, b0, B);
     stage(smem, L.size, L.D, in.D, L.NE, L.NE, 0, b0, B);
     stage(smem, L.size, L.aux, in.aux, naux, naux, 0, b0, B);
     stage(smem, L.size, L.us, in.us, CDIM * L.K, CDIM * L.K, 0, b0, B);
-    stage(smem, L.size, L.qM, in.qM, NTRI, NTRI, 0, b0, B);
-    stage(smem, L.size, L.x0, in.x0, NV, NV, 0, b0, B);
-    stage(smem, L.size, L.warm, in.warm, NV, NV, 0, b0, B);
+    stage(smem, L.size, L.qM, in.qM, tri_nv, tri_nv, 0, b0, B);
+    stage(smem, L.size, L.x0, in.x0, nv, nv, 0, b0, B);
+    stage(smem, L.size, L.warm, in.warm, nv, nv, 0, b0, B);
+    if (nv < NV) {
+        const auto zero = [](int) { return 0.f; };
+        fill(smem, L.size, L.J + nv * L.NEp, (NV - nv) * L.NEp, zero);
+        fill(smem, L.size, L.qM + tri_nv, L.NTRI - tri_nv, [&](int i) {
+            int r = nv;                        // the padded row of entry tri_nv + i
+            while (tri(r + 1, 0) <= tri_nv + i) ++r;
+            return tri_nv + i == tri(r, r) ? 1.f : 0.f;
+        });
+        fill(smem, L.size, L.x0 + nv, NV - nv, zero);
+        fill(smem, L.size, L.warm + nv, NV - nv, zero);
+    }
     __syncthreads();
 
     const int w = threadIdx.x / WARP;
     if (b0 + w < B) {
-        Env e{smem + w * L.size, L};
+        Env<NV> e{smem + w * L.size, L};
         solve_env(e, threadIdx.x % WARP, max_iters, ls_len, bracket_len, tol);
     }
     __syncthreads();
 
-    for (int q = threadIdx.x; q < NOUT * ENVS; q += blockDim.x) {
+    // output row r of (2 nv + 1): qacc, qfrc_constraint, niter of the real dofs
+    for (int q = threadIdx.x; q < (2 * nv + 1) * ENVS; q += blockDim.x) {
         const int r = q / ENVS, e = q - r * ENVS;
-        if (b0 + e < B) out[(size_t)r * B + b0 + e] = smem[e * L.size + L.o + r];
+        const int src = r < nv ? r : r < 2 * nv ? NV + r - nv : 2 * NV;
+        if (b0 + e < B) out[(size_t)r * B + b0 + e] = smem[e * L.size + L.o + src];
     }
+}
+
+// The instantiations, ascending; a problem runs on the first whose NV is
+// at least its nv.  The build may name its own (-DNEWTON_NVS=...).
+#ifndef NEWTON_NVS
+#define NEWTON_NVS 12, 15, 16
+#endif
+
+// f(std::integral_constant<int, NV>) for the instantiation that runs nv;
+// cudaErrorInvalidValue where none does (nv above the largest, or < 1).
+template <int... Ns, class F>
+int with_nv(int nv, F f) {
+    int err = (int)cudaErrorInvalidValue;
+    bool found = false;
+    ((!found && nv >= 1 && nv <= Ns ? (found = true, err = f(std::integral_constant<int, Ns>{}))
+                                    : 0), ...);
+    return err;
 }
 
 }  // namespace
 
 // Launch shape for these sizes: shape[0] envs per block, shape[1] threads,
-// shape[2] bytes of dynamic shared memory.
-extern "C" void gst_newton_solve_shape(int NE, int neq, int nf, int nl, int K, int* shape)
+// shape[2] bytes of dynamic shared memory; all 0 where no instantiation
+// runs nv.
+extern "C" void gst_newton_solve_shape(int nv, int NE, int neq, int nf, int nl, int K,
+                                       int* shape)
 {
-    const Layout L(NE, neq, nf, nl, K);
-    shape[0] = ENVS;
-    shape[1] = ENVS * WARP;
-    shape[2] = ENVS * L.size * (int)sizeof(float);
+    shape[0] = shape[1] = shape[2] = 0;
+    with_nv<NEWTON_NVS>(nv, [&](auto n) {
+        const Layout<decltype(n)::value> L(NE, neq, nf, nl, K);
+        shape[0] = ENVS;
+        shape[1] = ENVS * WARP;
+        shape[2] = ENVS * L.size * (int)sizeof(float);
+        return 0;
+    });
 }
 
 extern "C" int gst_newton_solve(
     const float* J, const float* aref, const float* D, const float* aux,
     const float* us, const float* qM, const float* x0, const float* warm, float* out,
-    int NE, int neq, int nf, int nl, int K, int B,
+    int nv, int NE, int neq, int nf, int nl, int K, int B,
     int max_iters, int ls_len, int bracket_len, float tol, void* stream)
 {
-    if (B == 0) return 0;
-    const Layout L(NE, neq, nf, nl, K);
-    const Inputs in{J, aref, D, aux, us, qM, x0, warm};
-    const size_t smem = (size_t)ENVS * L.size * sizeof(float);
-    if (smem > 48 * 1024) {
-        cudaError_t err = cudaFuncSetAttribute(
-            newton_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return (int)err;
-    }
-    newton_solve_kernel<<<(B + ENVS - 1) / ENVS, ENVS * WARP, smem, (cudaStream_t)stream>>>(
-        in, out, L, B, max_iters, ls_len, bracket_len, tol);
-    return (int)cudaGetLastError();
+    return with_nv<NEWTON_NVS>(nv, [&](auto n) {
+        constexpr int NV = decltype(n)::value;
+        if (B == 0) return 0;
+        const Layout<NV> L(NE, neq, nf, nl, K);
+        const Inputs in{J, aref, D, aux, us, qM, x0, warm};
+        const size_t smem = (size_t)ENVS * L.size * sizeof(float);
+        if (smem > 48 * 1024) {
+            cudaError_t err = cudaFuncSetAttribute(
+                newton_solve_kernel<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+            if (err != cudaSuccess) return (int)err;
+        }
+        newton_solve_kernel<NV><<<(B + ENVS - 1) / ENVS, ENVS * WARP, smem,
+                                  (cudaStream_t)stream>>>(
+            in, out, L, nv, B, max_iters, ls_len, bracket_len, tol);
+        return (int)cudaGetLastError();
+    });
 }

@@ -93,10 +93,10 @@ _SIGNATURES = {
     # G, ND, P, Vtot, shape[3]
     "gst_hull_sweep_shape": ([_I] * 4 + [_P], None),
     # J, aref, D, aux, us, qMl, x0, warm, out,
-    # NE, neq, nf, nl, K, B, max_iters, ls_len, bracket_len, tol, stream
-    "gst_newton_solve": ([_P] * 9 + [_I] * 9 + [_F, _P], ctypes.c_int),
-    # NE, neq, nf, nl, K, shape[3]
-    "gst_newton_solve_shape": ([_I] * 5 + [_P], None),
+    # nv, NE, neq, nf, nl, K, B, max_iters, ls_len, bracket_len, tol, stream
+    "gst_newton_solve": ([_P] * 9 + [_I] * 10 + [_F, _P], ctypes.c_int),
+    # nv, NE, neq, nf, nl, K, shape[3]
+    "gst_newton_solve_shape": ([_I] * 6 + [_P], None),
 }
 
 

@@ -3,7 +3,7 @@
 The port of `gym_so100_tpu/ops/solver_lanes.py`.  It minimizes, per env,
 the constraint cost over equality (quadratic), friction-loss (Huber), limit
 (one-sided) and elliptic-cone contact rows (top/middle/bottom zones) plus
-1/2 (x - a0)' M (x - a0): Newton directions from a 12x12 Cholesky with a
+1/2 (x - a0)' M (x - a0): Newton directions from an nv x nv Cholesky with a
 steepest-descent guard, an exact line search on the directional derivative
 (bracket expansion, then regula falsi), a masked stop at `tol`, and a fixed
 f32 budget of 10 Newton / 5 bracket / 6 line-search steps.
@@ -269,8 +269,11 @@ def pack_fused_inputs(m: Model, qM, a0, efc: EfcLanes, warmstart=None):
     )
 
 
+NV_MAX = 16     # the largest nv the solver kernel takes (csrc/newton_solve.cu)
+
+
 def solve_fused(m: Model, qM, a0, efc: EfcLanes, warmstart=None):
-    """Launch the whole-solve CUDA kernel (float32, nv = 12).  Same
+    """Launch the whole-solve CUDA kernel (float32, nv <= NV_MAX).  Same
     arguments and results as `solve_plain`.
 
     The kernel runs one warp per env, four envs per 128-thread block.  It
@@ -278,12 +281,15 @@ def solve_fused(m: Model, qM, a0, efc: EfcLanes, warmstart=None):
     intermediate there (jar, djar, row weights, x, the direction) or in
     registers (the Hessian's entries and their Cholesky factor, owned by
     the lanes that assembled them), so the only device memory it touches
-    is the packed inputs and the (2*nv + 1, B) output allocated here."""
+    is the packed inputs and the (2*nv + 1, B) output allocated here.  It
+    is built for nv = 12, 15 and 16; another nv runs on the next larger
+    build, padded inside the kernel."""
     from .. import kernels
 
     B, nv = a0.shape
-    if nv != 12:
-        raise NotImplementedError(f"the solver kernel is built for nv = 12, got {nv}")
+    if nv > NV_MAX:
+        raise NotImplementedError(
+            f"the solver kernel takes nv <= {NV_MAX}, got {nv}")
     NE = efc.aref.shape[0]
     K = efc.con_mu.shape[0]
     inp = pack_fused_inputs(m, qM, a0, efc, warmstart)
@@ -300,7 +306,7 @@ def solve_fused(m: Model, qM, a0, efc: EfcLanes, warmstart=None):
     kernels.launch(
         "gst_newton_solve", inp["J"], inp["aref"], inp["D"], inp["aux"],
         inp["us"], inp["qM"], inp["x0"], inp["warm"], out,
-        NE, efc.neq, efc.nf, efc.nl, K, B, *budgets(m, f32),
+        nv, NE, efc.neq, efc.nf, efc.nl, K, B, *budgets(m, f32),
     )
     solve_fused.launches += 1
     return out[:nv].T, out[nv:2 * nv].T, out[2 * nv].to(torch.int32)

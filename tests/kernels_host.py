@@ -233,13 +233,13 @@ def _host_source(name, real, mutate=None):
     return s
 
 
-def _build(tmp, name, real, mutate=None, tag=""):
+def _build(tmp, name, real, mutate=None, tag="", defines=()):
     src = tmp / f"{name}_{real}{tag}.cpp"
     src.write_text(SHIM + _host_source(name, real, mutate))
     lib = tmp / f"lib{name}_{real}{tag}.so"
     res = subprocess.run(
         ["g++", "-std=c++20", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
-         "-Wno-unknown-pragmas", "-o", str(lib), str(src)],
+         "-Wno-unknown-pragmas", *[f"-D{d}" for d in defines], "-o", str(lib), str(src)],
         capture_output=True, text=True)
     assert res.returncode == 0, res.stderr
     return ctypes.CDLL(str(lib))
@@ -248,10 +248,13 @@ def _build(tmp, name, real, mutate=None, tag=""):
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def _solver_lib(tmp, real, mutate=None, tag=""):
-    lib = _build(tmp, "newton_solve", real, mutate, tag)
+def _solver_lib(tmp, real, mutate=None, tag="", nvs=(12,)):
+    """The Newton source built for the host with only the instantiations
+    `nvs` (ascending; a problem runs on the first NV >= its nv, padded)."""
+    lib = _build(tmp, "newton_solve", real, mutate, tag,
+                 defines=[f"NEWTON_NVS={','.join(map(str, nvs))}"])
     ct = ctypes.c_float if real == "float" else ctypes.c_double
-    lib.gst_newton_solve.argtypes = [_P] * 9 + [_I] * 9 + [ct, _P]
+    lib.gst_newton_solve.argtypes = [_P] * 9 + [_I] * 10 + [ct, _P]
     return lib
 
 
@@ -361,7 +364,7 @@ def _solve_host(lib, m, qM, a0, efc, warm, budgets, tol):
     out, past = _out_buffer((2 * m.nv + 1, B), a0.dtype)
     _call(lib.gst_newton_solve, *[inp[k] for k in
           ("J", "aref", "D", "aux", "us", "qM", "x0", "warm")], out,
-          NE, efc.neq, efc.nf, efc.nl, K, B, *budgets, tol)
+          m.nv, NE, efc.neq, efc.nf, efc.nl, K, B, *budgets, tol)
     assert torch.isnan(past).all(), "the kernel wrote past its output"
     return out[:m.nv].T, out[m.nv:2 * m.nv].T, out[2 * m.nv]
 
