@@ -5,7 +5,7 @@
 Phases, each printed on its own line:
  1. build both CUDA kernels from gym_so100_tpu_torch/csrc with nvcc (sm_90a)
     and print each kernel's ptxas lines (registers, spills), the Newton
-    kernel's for each instantiated nv;
+    kernel's for each instantiated nv and for its runtime-nv kernel;
  2. print the card's name and power limit (nvidia-smi);
  3. print each kernel's launch shape (envs per block, threads, dynamic
     shared memory); check each kernel against its plain PyTorch version
@@ -13,7 +13,9 @@ Phases, each printed on its own line:
     (float32, hull contacts on, K = 16): at touchdown (the first control
     step after the third at which at least half the envs have a contact)
     and after 12 control steps (the cube landed, the arm reaching the cube
-    and the table), and time both on the latter;
+    and the table), and time both on the latter; the hull kernel at 2 and
+    at 1 envs per block on the latter's poses, its tables padded with
+    copies of geoms that no pair names (launch shape and bit-equality);
  4. run BatchedEnv(num_envs=4096, device="cuda"): reset, then control steps
     with seeded random actions and one autoreset; assert finite results and
     that each kernel launched exactly 10 times per control step; time the
@@ -111,7 +113,7 @@ Phases, each printed on its own line:
     15: the Newton kernel's nv = 15 build, the hull kernel at G = 31, P =
     256, 4 envs per block): forward.n_steps_batched at 1024 envs from
     "home" with each env's arm joints moved by a seeded draw of at most
-    0.01 rad, 4 control steps holding each mocap target on its ee, then 8
+    0.01 rad, 2 control steps holding each mocap target on its ee, then 6
     after moving it 3 cm along +x, counted (10 launches of each kernel per
     control step); finite, the fingers coupled in every lane, the first 8
     lanes' ee moved > 1.5 cm along +x; both kernels against their plain
@@ -120,7 +122,19 @@ Phases, each printed on its own line:
     the same steps on the CPU within PB_TOL, which lies above twice the
     card's own one-ulp spread and below a planted fault (the finger
     coupling dropped); the control step timed;
-15. print the build, ptxas, launch-shape and check lines again (so that
+15. the batched lanes step of the five-cube SO100 scene
+    (write_multicube_scene: so100_transfer_cube.xml and four free cubes
+    resting on the table; float32, K = 32, nv = 36: the Newton kernel's
+    runtime-nv build; the hull kernel at G = 29, P = 169) at 4096 envs, 4
+    control steps from qpos0 with each env's arm joints moved by a seeded
+    draw of at most 0.01 rad, counted (10 launches of each kernel per
+    step); finite, ncon within K, the resting cubes within 5 mm of z = 0.02;
+    both kernels against their plain versions on the state after them (the
+    hull tables bit-equal, the Newton solve by the floor rule, which the
+    kernel on rows with one cube's J zeroed must miss), timed; then the
+    one-extra-cube scene (nv = 18) at 1024 envs the same way, the Newton
+    kernel checked and timed there;
+16. print the build, ptxas, launch-shape and check lines again (so that
     the end of the output holds them), the kernel table as one JSON line
     (per kernel: the K = 16 row, the statistic its check bounds with that
     bound, the training phase's launches, check and times under
@@ -129,10 +143,13 @@ Phases, each printed on its own line:
     times under "her", and the EE phase's launches, check, times and neq
     under "ee", the multi-GPU phase's per-rank launches and times under
     "dist", the batch-first phase's launches and times under
-    "batch_first", and the batched Panda phase's launches, check, times
-    and nv under "panda_batched"), the single-env, Panda, batched Panda
-    and trace phases' numbers as a JSON line before it, the card, then the
-    result line
+    "batch_first", the batched Panda phase's launches, check, times
+    and nv under "panda_batched", and the hull kernel's 2- and 1-env
+    blocks under "padded" and its five-cube launches, check and times under
+    "multicube"; then a row of the runtime-nv Newton kernel from the
+    five-cube phase, with its nv = 18 check and times under "nv18"), the
+    single-env, Panda, batched Panda, five-cube and trace phases' numbers as
+    a JSON line before it, the card, then the result line
     {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -268,7 +285,46 @@ PB_TRACKED = 8        # lanes held to the JAX test's criteria and to the CPU
 # weld leaves the 7-dof arm one null-space motion (turning the arm about
 # its ee), which only the joint servos hold
 PB_TOL = 0.1
+# phase 14 runs shorter moves than phase 11 (PANDA_HOLD, PANDA_MOVE): 2
+# hold and 6 move control steps, in which the tracked ee still move > 1.5
+# cm along +x (1.76-2.28 cm on the CPU) and the dropped finger coupling
+# still lies past PB_TOL (0.156 after the 2 hold steps on the CPU)
+PB_HOLD = 2
+PB_MOVE = 6
+# the five-cube phase: so100_transfer_cube.xml with MC_CUBES more free
+# cubes resting on the table (nv = 12 + 6 * MC_CUBES = 36: the Newton
+# kernel's runtime-nv build), float32, K = 32, at the env-step phase's
+# width, from qpos0 with each env's arm joints moved by a seeded draw of at
+# most MC_JITTER rad; `box` falls from 5 cm and lands at about the 4th step
+MC_CUBES = 4
+MC_ENVS = 4096
+MC_K = 32
+MC_STEPS = 4
+MC_JITTER = 0.01
+MC_REST_TOL = 5e-3    # m: the resting cubes' height from 0.02
+MC18_ENVS = 1024      # the one-extra-cube scene (nv = 18)
 RECAP = []   # the build, launch-shape and check lines, printed again at the end
+
+
+def write_multicube_scene(directory, cubes=MC_CUBES):
+    """Write so100_transfer_cube.xml (included by its absolute path) with
+    `cubes` more free bodies cube0.. resting on the table at (-0.15 + 0.06 i,
+    0.30, 0.021), each with `box`'s joint frictionloss, inertial and geom
+    attributes and a 0.02 half-size box, into `directory`; returns the path.
+    nv = 12 + 6 * cubes."""
+    base = Path(__file__).resolve().parent / "gym_so100_tpu" / "assets" / "so100_transfer_cube.xml"
+    bodies = "".join(f"""
+        <body name="cube{i}" pos="{-0.15 + 0.06 * i:.2f} 0.30 0.021">
+            <joint name="cube{i}_joint" type="free" frictionloss="0.01" />
+            <inertial pos="0 0 0" mass="0.05" diaginertia="0.002 0.002 0.002" />
+            <geom condim="4" solimp="2 1 0.01" solref="0.01 1" friction="1 0.005 0.0001"
+                pos="0 0 0" size="0.02 0.02 0.02" type="box" name="cube{i}_geom"
+                rgba="0 0 1 1" />
+        </body>""" for i in range(cubes))
+    path = Path(directory) / f"so100_transfer_{1 + cubes}_cubes.xml"
+    path.write_text(f'<mujoco>\n    <include file="{base}" />\n    <worldbody>{bodies}\n'
+                    f'    </worldbody>\n</mujoco>\n')
+    return path
 
 
 def log(msg, recap=False):
@@ -392,6 +448,62 @@ def check_hull(env, es, timed):
     )
 
 
+def padded_hull_args(tb, p_pack, R_pack, G_pad):
+    """The hull sweep's inputs (p, R, verts, D, counts, i1, i2) with the
+    tables of `tb` padded to G_pad geoms by copies of its geoms in turn,
+    which no pair names: the outputs are those of the unpadded inputs, the
+    shared-memory tables larger.  Returns (args, Vtot)."""
+    import torch
+
+    G, B = tb.G, p_pack.shape[1]
+    idx = torch.arange(G_pad, device=tb.verts.device) % G
+    p = p_pack.view(3, G, B)[:, idx].reshape(3 * G_pad, B).contiguous()
+    R = R_pack.view(9, G, B)[:, idx].reshape(9 * G_pad, B).contiguous()
+    counts = tb.counts[idx].contiguous()
+    return (p, R, tb.verts[idx].contiguous(), tb.D, counts, tb.i1, tb.i2), int(counts.sum())
+
+
+def check_hull_padded(env, es):
+    """Kernel 1 at 2 and at 1 envs per block: the geom poses of `es` with
+    the tables padded (padded_hull_args) to the fewest geoms at which 4,
+    then 2, envs no longer fit a block, launched directly (uncounted); each
+    launch shape must show the smaller E, and the output must equal
+    sweep_h_plain's on the unpadded inputs bit for bit.  Returns {E: G}."""
+    import torch
+
+    from gym_so100_tpu_torch import kernels
+    from gym_so100_tpu_torch.ops.collision import hull_lanes
+    from gym_so100_tpu_torch.ops.smooth_lanes import kinematics
+
+    tb = hull_lanes.hull_tables(env.m)
+    _, _, p_pack, R_pack = hull_inputs(env.m, kinematics(env.m, es.physics))
+    ref = hull_lanes.sweep_h_plain(p_pack, R_pack, tb.verts, tb.D, tb.counts, tb.i1, tb.i2)
+    ND, P, B = tb.D.shape[0], tb.P, p_pack.shape[1]
+    Vmax = tb.verts.shape[1] // 3
+    counts = tb.counts.tolist()
+    sizes = {}
+    for G_pad in range(tb.G, 16 * tb.G):
+        vtot = sum(counts[g % tb.G] for g in range(G_pad))
+        E = kernels.launch_shape("gst_hull_sweep", G_pad, ND, P, vtot)[0]
+        sizes.setdefault(E, G_pad)
+        if E < 1:
+            break
+    for E in (2, 1):
+        assert E in sizes, f"hull: no table size gives {E} envs per block: {sizes}"
+        args, vtot = padded_hull_args(tb, p_pack, R_pack, sizes[E])
+        shape = kernels.launch_shape("gst_hull_sweep", sizes[E], ND, P, vtot)
+        assert shape[0] == E, shape
+        log_shape(f"hull_sweep (G padded to {sizes[E]})", shape, B)
+        out = torch.empty_like(ref)
+        kernels.launch("gst_hull_sweep", *args, out, sizes[E], ND, P, Vmax, vtot, B)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), f"hull: {E} envs per block differ from the plain version"
+    log(f"hull sweep check at 2 and 1 envs per block (G padded to {sizes[2]} and "
+        f"{sizes[1]}; {sizes.get(0, 'no')} geoms fit no block): bit-equal to the plain "
+        f"version", recap=True)
+    return {E: sizes[E] for E in (2, 1)}
+
+
 def _solver_stats(q, f, n, ref):
     """Per-lane differences from the reference solve, as the contract of
     tests/test_solver_pallas.py reads them."""
@@ -422,7 +534,7 @@ def solver_problem(env, es):
     return sl["qM_lanes"], sl["qacc_smooth"], efc, s.qacc_warmstart
 
 
-def check_solver(env, es, timed, floor_samples=0):
+def check_solver(env, es, timed, floor_samples=0, fault=None):
     """Kernel 2 against solve_plain on the constraint rows of `es`.
 
     Both run the same float32 algorithm with sums in different orders, and
@@ -437,7 +549,9 @@ def check_solver(env, es, timed, floor_samples=0):
     moved by one ulp of noise on each input (J, aref, D, qM, a0; n
     samples), and every one of those statistics is held to the larger of
     the contract and twice the worst sample (two solves that each lie
-    within the floor of the plain one lie within twice it of each other)."""
+    within the floor of the plain one lie within twice it of each other).
+    With `fault` (efc -> efc), the kernel on the faulted rows must miss
+    some bound: a planted fault that shows the check can fail."""
     import dataclasses
 
     import torch
@@ -480,6 +594,12 @@ def check_solver(env, es, timed, floor_samples=0):
             recap=True)
     for k, bound in bounds.items():
         assert st[k] < bound, f"solver: {k} {st[k]:.3g} >= {bound:.3g}"
+    if fault is not None:
+        fst = _solver_stats(*solver_lanes.solve_fused(m, qM, a0, fault(efc), warm), ref)
+        missed = [k for k in bounds if not fst[k] < bounds[k]]
+        log(f"solver check, planted fault: kernel on the faulted rows vs plain: {fmt(fst)}; "
+            f"misses the bounds of {missed}", recap=True)
+        assert missed, "solver: the planted fault passed the check"
     if not timed:
         return None
 
@@ -487,8 +607,8 @@ def check_solver(env, es, timed, floor_samples=0):
     NE, B = efc.aref.shape
     K = efc.con_mu.shape[0]
     out = torch.empty(2 * m.nv + 1, B, device=a0.device)
-    log_shape(f"newton_solve (nv = {m.nv})", kernels.launch_shape(
-        "gst_newton_solve", m.nv, NE, efc.neq, efc.nf, efc.nl, K), B)
+    shape = kernels.launch_shape("gst_newton_solve", m.nv, NE, efc.neq, efc.nf, efc.nl, K)
+    log_shape(f"newton_solve (nv = {m.nv})", shape, B)
     ms = cuda_ms(lambda: kernels.launch(
         "gst_newton_solve", inp["J"], inp["aref"], inp["D"], inp["aux"], inp["us"],
         inp["qM"], inp["x0"], inp["warm"], out, m.nv, NE, efc.neq, efc.nf,
@@ -513,7 +633,7 @@ def check_solver(env, es, timed, floor_samples=0):
         max_abs_err=float((qk - ref[0]).abs().max()), ms=ms, plain_ms=plain_ms,
         **_bound(nbytes, ops), library_ms=None,
         check_stat="max |kernel qacc - plain qacc| / max(rms(plain qacc), 1)",
-        check_value=st["qmax"], check_bound=bounds["qmax"],
+        check_value=st["qmax"], check_bound=bounds["qmax"], NE=NE, launch_shape=shape,
     )
 
 
@@ -1849,7 +1969,7 @@ def _panda_batched_start(m, aux, B, ulp=False):
     return s.replace(mocap_pos=smooth_lanes.kinematics(m, s).site_xpos[:, ee][:, None].clone())
 
 
-def _panda_batched_run(m, s, hold=PANDA_HOLD, move=PANDA_MOVE):
+def _panda_batched_run(m, s, hold=PB_HOLD, move=PB_MOVE):
     """`hold` control steps of n_steps_batched, then each target 3 cm along
     +x for `move` steps.  Returns (the first PB_TRACKED lanes' qpos per step
     (float64, CPU), the state after the last step, ee x of every lane after
@@ -1880,8 +2000,8 @@ def _panda_batched_run(m, s, hold=PANDA_HOLD, move=PANDA_MOVE):
 
 def run_panda_batched(card):
     """The batched lanes step of the Panda EE scene on the card: PB_ENVS
-    envs, K = PANDA_K, float32, nv = 15; PANDA_HOLD control steps holding
-    each mocap target on its ee, then PANDA_MOVE after moving it 3 cm along
+    envs, K = PANDA_K, float32, nv = 15; PB_HOLD control steps holding
+    each mocap target on its ee, then PB_MOVE after moving it 3 cm along
     +x, counted (10 launches of each kernel per control step).  Finite, the
     fingers coupled in every lane, the first PB_TRACKED lanes' ee moved >
     1.5 cm along +x (tests/test_panda.py's criteria); both kernels against
@@ -1907,7 +2027,7 @@ def run_panda_batched(card):
         f"{len(m.eq_site1)} weld and {len(m.eq_jnt_q1)} joint equality; pairs "
         f"{len(m.pairs.box_box)} box-box / {len(m.pairs.hull_box)} hull-box / "
         f"{len(m.pairs.hull_hull)} hull-hull; hull tables G {tb.G}, ND {tb.D.shape[0]}, "
-        f"P {tb.P}; {PANDA_HOLD} hold + {PANDA_MOVE} move control steps", recap=True)
+        f"P {tb.P}; {PB_HOLD} hold + {PB_MOVE} move control steps", recap=True)
     s0 = _panda_batched_start(m, aux, PB_ENVS)
     hull_lanes.sweep_h.launches = 0
     solver_lanes.solve_fused.launches = 0
@@ -1915,7 +2035,7 @@ def run_panda_batched(card):
     torch.cuda.synchronize()
     launches = {"hull_sweep": hull_lanes.sweep_h.launches,
                 "newton_solve": solver_lanes.solve_fused.launches}
-    n_steps = PANDA_HOLD + PANDA_MOVE
+    n_steps = PB_HOLD + PB_MOVE
     for name, n in launches.items():
         assert n == 10 * n_steps, f"Panda batched: {name} {n} launches, expected {10 * n_steps}"
     assert bool(torch.isfinite(s.qpos).all() and torch.isfinite(s.qvel).all()), \
@@ -1961,12 +2081,12 @@ def run_panda_batched(card):
     fmt = lambda x: "{" + ", ".join(f"{k}: {v:.1e}" for k, v in x.items()) + "}"
     faulty = dataclasses.replace(m, eq_jnt_q1=(), eq_jnt_q2=(), eq_jnt_v1=(), eq_jnt_v2=())
     fault_dev = float((_panda_batched_run(
-        faulty, _panda_batched_start(m, aux, n), PANDA_HOLD, 0)[0]
-        - q_cpu[:PANDA_HOLD]).abs().max())
+        faulty, _panda_batched_start(m, aux, n), PB_HOLD, 0)[0]
+        - q_cpu[:PB_HOLD]).abs().max())
     log(f"Panda batched: first {n} lanes, card vs CPU max |qpos difference| {dev:.3e} "
         f"over the {n_steps} steps (bound {PB_TOL:g}); the card's own one-ulp spread "
         f"{spread:.3e}, the card with the finger coupling dropped vs the CPU's sound run "
-        f"{fault_dev:.3e} over the {PANDA_HOLD} hold steps; CPU run {cpu_s:.1f} s; on "
+        f"{fault_dev:.3e} over the {PB_HOLD} hold steps; CPU run {cpu_s:.1f} s; on "
         f"{card}", recap=True)
     log(f"Panda batched: by joint, card vs CPU {fmt(by_joint(dev_q))}; one-ulp spread "
         f"{fmt(by_joint(spread_q))}; by lane, card vs CPU "
@@ -1982,6 +2102,125 @@ def run_panda_batched(card):
                    ee_dx_min=float(dx.min()), ncon_max=ncon, max_abs_dev_cpu=dev,
                    bound=PB_TOL, one_ulp_spread=spread, fault_max_abs_dev_cpu=fault_dev)
     return {name: dict(launches=launches[name], nv=m.nv, **rows[name]) for name in rows}, numbers
+
+
+def _multicube_start(m, B):
+    """B envs of a multi-cube scene at qpos0, each env's arm joints moved by
+    a seeded draw of at most MC_JITTER rad, the arm's servos at 0."""
+    import numpy as np
+    import torch
+
+    from gym_so100_tpu_torch.models.scene import State
+
+    qpos = np.tile(m.qpos0.double().cpu().numpy(), (B, 1))
+    qpos[:, :6] += np.random.RandomState(SEED + 13).uniform(-MC_JITTER, MC_JITTER, (B, 6))
+    zeros = lambda *shape: torch.zeros(*shape, dtype=m.dtype, device=m.device)
+    return State(qpos=torch.tensor(qpos, dtype=m.dtype, device=m.device), qvel=zeros(B, m.nv),
+                 ctrl=zeros(B, m.nu), mocap_pos=zeros(B, 0, 3), mocap_quat=zeros(B, 0, 4),
+                 qacc_warmstart=zeros(B, m.nv))
+
+
+def _multicube_run(m, B, card):
+    """MC_STEPS control steps of n_steps_batched from _multicube_start,
+    counted: 10 launches of each kernel per step, finite, ncon <= K, every
+    resting cube within MC_REST_TOL of z = 0.02.  Returns (state, launches,
+    ms per step, ncon max)."""
+    import torch
+
+    from gym_so100_tpu_torch.ops import forward as fwd
+    from gym_so100_tpu_torch.ops import solver_lanes
+    from gym_so100_tpu_torch.ops.collision import hull_lanes
+
+    s = _multicube_start(m, B)
+    hull_lanes.sweep_h.launches = 0
+    solver_lanes.solve_fused.launches = 0
+    ms, ncon = [], 0
+    for _ in range(MC_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s, nc = fwd.n_steps_batched(m, s, 10)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        ncon = max(ncon, int(nc.max()))
+    launches = {"hull_sweep": hull_lanes.sweep_h.launches,
+                "newton_solve": solver_lanes.solve_fused.launches}
+    cubes = (m.nv - 12) // 6
+    z = torch.stack([s.qpos[:, m.jnt_qposadr[m.joint_id(f"cube{i}_joint")] + 2]
+                     for i in range(cubes)])
+    rest = float((z - 0.02).abs().max())
+    step = sum(ms[1:]) / len(ms[1:])
+    log(f"multi-cube (nv {m.nv}): {B} envs, launches {launches}, ncon max {ncon} (K "
+        f"{m.max_contacts}); resting cubes' |z - 0.02| max {rest:.2e} m (bound "
+        f"{MC_REST_TOL:g}); control step {step:.1f} ms (host clock, mean of steps "
+        f"2-{MC_STEPS}; the first {ms[0]:.1f} ms), {B / step * 1e3:.1f} env-steps/s; on {card}",
+        recap=True)
+    for name, n in launches.items():
+        assert n == 10 * MC_STEPS, f"multi-cube: {name} {n} launches, expected {10 * MC_STEPS}"
+    assert bool(torch.isfinite(s.qpos).all() and torch.isfinite(s.qvel).all()), \
+        "multi-cube: state not finite"
+    assert ncon <= m.max_contacts, f"multi-cube: ncon {ncon} > K"
+    assert rest <= MC_REST_TOL, f"multi-cube: a resting cube moved {rest} m off the table"
+    return s, launches, step, ncon
+
+
+def run_multicube(card):
+    """The batched lanes step of the five-cube SO100 scene (float32, K =
+    MC_K, nv = 36: the Newton kernel's runtime-nv build) at MC_ENVS envs,
+    MC_STEPS control steps from rest, counted (10 launches of each kernel per
+    step); both kernels against their plain versions on the state after
+    them (the hull tables bit-equal, the Newton solve by the floor rule, a
+    planted fault missing it: one cube's J rows zeroed), timed; then the
+    one-extra-cube scene (nv = 18) at MC18_ENVS envs the same way, the
+    Newton kernel checked and timed there.  Returns {kernel: row} and the
+    phase's numbers."""
+    import dataclasses
+    import tempfile
+    import types
+
+    from gym_so100_tpu_torch.models.builder import build_model
+    from gym_so100_tpu_torch.ops.collision import hull_lanes
+
+    with tempfile.TemporaryDirectory() as tmp:
+        m, _ = build_model(str(write_multicube_scene(tmp)), max_contacts=MC_K, device="cuda")
+        m18, _ = build_model(str(write_multicube_scene(tmp, 1)), max_contacts=MC_K,
+                             device="cuda")
+    tb = hull_lanes.hull_tables(m)
+    log(f"multi-cube: so100_transfer_cube.xml + {MC_CUBES} free cubes, float32, K {MC_K}, "
+        f"nq {m.nq} nv {m.nv} ngeom {m.ngeom}; pairs {len(m.pairs.box_box)} box-box / "
+        f"{len(m.pairs.hull_box)} hull-box / {len(m.pairs.hull_hull)} hull-hull; hull "
+        f"tables G {tb.G}, ND {tb.D.shape[0]}, P {tb.P}", recap=True)
+    s, launches, step, ncon = _multicube_run(m, MC_ENVS, card)
+    cube = m.jnt_dofadr[m.joint_id("cube0_joint")]
+
+    def drop_cube(efc):          # the planted fault: cube0's dofs lose their J rows
+        J = efc.J.clone()
+        J[cube:cube + 6] = 0
+        return dataclasses.replace(efc, J=J)
+
+    env = types.SimpleNamespace(m=m)
+    es = types.SimpleNamespace(physics=s)
+    rows = {"hull_sweep": check_hull(env, es, timed=True),
+            "newton_solve": check_solver(env, es, timed=True, floor_samples=FLOOR_SAMPLES,
+                                         fault=drop_cube)}
+    assert rows["hull_sweep"]["max_abs_err"] == 0.0, "multi-cube: hull tables differ"
+    shape = rows["newton_solve"]["launch_shape"]
+    s18, launches18, step18, _ = _multicube_run(m18, MC18_ENVS, card)
+    row18 = check_solver(types.SimpleNamespace(m=m18), types.SimpleNamespace(physics=s18),
+                         timed=True, floor_samples=FLOOR_SAMPLES)
+    log(f"multi-cube kernels: hull {rows['hull_sweep']['ms']:.4f} ms (bound "
+        f"{rows['hull_sweep']['bound_ms']:.4f}, plain {rows['hull_sweep']['plain_ms']:.4f}), "
+        f"Newton nv = {m.nv} {rows['newton_solve']['ms']:.4f} ms (bound "
+        f"{rows['newton_solve']['bound_ms']:.4f}, plain {rows['newton_solve']['plain_ms']:.4f}; "
+        f"{shape[0]} envs per block, {shape[2]} B), nv = {m18.nv} {row18['ms']:.4f} ms (bound "
+        f"{row18['bound_ms']:.4f}, plain {row18['plain_ms']:.4f}) per launch; on {card}",
+        recap=True)
+    rows["hull_sweep"].update(launches=launches["hull_sweep"], G=tb.G, P=tb.P)
+    rows["newton_solve"].update(launches=launches["newton_solve"], nv=m.nv,
+                                envs_per_block=shape[0], smem_bytes=shape[2])
+    row18.update(launches=launches18["newton_solve"], nv=m18.nv)
+    numbers = dict(step_ms=step, env_steps_per_s=MC_ENVS / step * 1e3, ncon_max=ncon,
+                   step_ms_nv18=step18, env_steps_per_s_nv18=MC18_ENVS / step18 * 1e3)
+    return rows, row18, numbers
 
 
 def main():
@@ -2014,12 +2253,13 @@ def main():
         f"{kernels.build_info.get('seconds', 0.0):.1f} s) -> {kernels.build_info['path']}",
         recap=True)
     # ptxas prints, per kernel, its name, then its spill and register lines;
-    # the Newton kernel once per instantiated nv
+    # the Newton kernel once per instantiated nv, then its runtime-nv kernel
     for line in kernels.build_info.get("log", "").splitlines():
         if "Compiling entry function" in line or "registers" in line or "spill" in line:
             nv = re.search(r"newton_solve_kernelILi(\d+)E", line)
-            log(f"  ptxas: {line.strip()}" + (f" [Newton, nv = {nv[1]}]" if nv else ""),
-                recap=True)
+            tag = (f" [Newton, nv = {nv[1]}]" if nv else
+                   " [Newton, runtime nv]" if "newton_solve_wide" in line else "")
+            log(f"  ptxas: {line.strip()}{tag}", recap=True)
 
     # 2. the card
     smi = gpu_name_and_power()
@@ -2050,6 +2290,7 @@ def main():
     landed = es
     rows = [check_hull(env, es, timed=True),
             check_solver(env, es, timed=True, floor_samples=FLOOR_SAMPLES)]
+    hull_padded = check_hull_padded(env, es)
 
     # 4. the main path, counted
     hull_lanes.sweep_h.launches = 0
@@ -2135,7 +2376,13 @@ def main():
     panda_batched, pb_numbers = run_panda_batched(card)
     log(f"Panda batched phase: {time.perf_counter() - t0:.1f} s wall time", recap=True)
 
-    # 15. results
+    # 15. the five-cube scene (nv = 36) and the one-extra-cube scene (nv =
+    # 18): the runtime-nv Newton kernel, counted
+    t0 = time.perf_counter()
+    multicube, mc_nv18, mc_numbers = run_multicube(card)
+    log(f"multi-cube phase: {time.perf_counter() - t0:.1f} s wall time", recap=True)
+
+    # 16. results
     for line in RECAP:
         log(f"recap: {line}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
@@ -2146,7 +2393,17 @@ def main():
     ee_keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "check_value", "check_bound", "neq")
     print(json.dumps({"single_env": single, "panda": panda, "panda_batched": pb_numbers,
-                      "trace": traced}), flush=True)
+                      "multicube": mc_numbers, "trace": traced}), flush=True)
+    rows[0]["padded"] = {"envs_per_block": {str(E): dict(G=G) for E, G in hull_padded.items()},
+                         "max_abs_err": 0.0}
+    rows[0]["multicube"] = {k: multicube["hull_sweep"][k] for k in train_keys + ("G", "P")}
+    # the runtime-nv Newton kernel: its own row, from the five-cube phase
+    wide = {**{k: multicube["newton_solve"][k] for k in keys},
+            "name": "newton_solve_wide", "nv": multicube["newton_solve"]["nv"],
+            "NE": multicube["newton_solve"]["NE"],
+            "envs_per_block": multicube["newton_solve"]["envs_per_block"],
+            "smem_bytes": multicube["newton_solve"]["smem_bytes"],
+            "nv18": {k: mc_nv18[k] for k in train_keys + ("nv",)}}
     print(json.dumps({"kernels": [
         {**{k: row[k] for k in keys},
          "train_k32": {k: train[row["name"]][k] for k in train_keys},
@@ -2156,8 +2413,9 @@ def main():
          "ee": {k: ee[row["name"]][k] for k in ee_keys},
          "dist": dist_rows[row["name"]],
          "batch_first": batch_first[row["name"]],
-         "panda_batched": {k: panda_batched[row["name"]][k] for k in train_keys + ("nv",)}}
-        for row in rows]}), flush=True)
+         "panda_batched": {k: panda_batched[row["name"]][k] for k in train_keys + ("nv",)},
+         **{k: row[k] for k in ("padded", "multicube") if k in row}}
+        for row in rows] + [wide]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -28,8 +28,10 @@
 // vertices = 232,164 B of the 232,448 a block may hold, so one block per
 // SM.  The mocap-weld scene has one hull geom more (its mocap target's
 // box, G = 26), which tips 8 envs over the limit (241,192 B), so E is 8
-// where that fits and 4 otherwise (125,544 B there); a scene whose tables
-// do not fit 4 envs makes the entry point return cudaErrorInvalidValue.
+// where that fits and 4 otherwise (125,544 B there); larger tables (about
+// G > 50) take 2, then 1, and only a scene whose single env's tables do
+// not fit (about G > 150) makes the entry point return
+// cudaErrorInvalidValue, where the Pallas kernel has no such bound.
 // E = 4 on the joint scene took 13% longer at 4096 envs (and 40% less at
 // 128, where 8 envs per block leave most SMs idle), so 8 stays first
 // (scripts/hull_ab.py).  The block has 512 threads (16 warps; 256 were
@@ -182,11 +184,11 @@ __global__ void __launch_bounds__(THREADS) hull_sweep_kernel(
     }
 }
 
-// The block shape for these sizes: 8 envs per block where their shared
-// memory fits, else 4; E = 0 when not even 4 fit.
+// The block shape for these sizes: the most envs per block whose shared
+// memory fits; E = 0 when not even one env's does.
 Shape shape_of(int G, int ND, int P, int Vtot)
 {
-    const int choices[] = {8, 4};
+    const int choices[] = {8, 4, 2, 1};
     for (int E : choices) {
         const Shape s{G, ND, ND | 1, P, Vtot, E};
         if (s.bytes() <= SMEM_LIMIT) return s;
@@ -223,8 +225,8 @@ extern "C" void gst_hull_sweep_shape(int G, int ND, int P, int Vtot, int* shape)
     shape[2] = (int)s.bytes();
 }
 
-// Returns cudaErrorInvalidValue when not even a 4-env block's tables fit
-// in one block's shared memory.
+// Returns cudaErrorInvalidValue when not even one env's tables fit in one
+// block's shared memory.
 extern "C" int gst_hull_sweep(
     const float* p, const float* R, const float* verts, const float* D,
     const int* counts, const int* i1, const int* i2, float* out,
@@ -236,6 +238,8 @@ extern "C" int gst_hull_sweep(
     switch (s.E) {
     case 8: return launch_sweep<8>(p, R, verts, D, counts, i1, i2, out, s, Vmax, B, st);
     case 4: return launch_sweep<4>(p, R, verts, D, counts, i1, i2, out, s, Vmax, B, st);
+    case 2: return launch_sweep<2>(p, R, verts, D, counts, i1, i2, out, s, Vmax, B, st);
+    case 1: return launch_sweep<1>(p, R, verts, D, counts, i1, i2, out, s, Vmax, B, st);
     default: return (int)cudaErrorInvalidValue;
     }
 }

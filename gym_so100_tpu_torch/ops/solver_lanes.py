@@ -269,29 +269,33 @@ def pack_fused_inputs(m: Model, qM, a0, efc: EfcLanes, warmstart=None):
     )
 
 
-NV_MAX = 16     # the largest nv the solver kernel takes (csrc/newton_solve.cu)
-
-
 def solve_fused(m: Model, qM, a0, efc: EfcLanes, warmstart=None):
-    """Launch the whole-solve CUDA kernel (float32, nv <= NV_MAX).  Same
-    arguments and results as `solve_plain`.
+    """Launch the whole-solve CUDA kernel (float32).  Same arguments and
+    results as `solve_plain`.
 
-    The kernel runs one warp per env, four envs per 128-thread block.  It
-    stages each env's inputs into shared memory once and keeps every
-    intermediate there (jar, djar, row weights, x, the direction) or in
-    registers (the Hessian's entries and their Cholesky factor, owned by
-    the lanes that assembled them), so the only device memory it touches
-    is the packed inputs and the (2*nv + 1, B) output allocated here.  It
-    is built for nv = 12, 15 and 16; another nv runs on the next larger
-    build, padded inside the kernel."""
+    The kernel runs one warp per env.  It stages each env's inputs into
+    shared memory once and keeps every intermediate there (jar, djar, row
+    weights, x, the direction) or in registers, so the only device memory
+    it touches is the packed inputs and the (2*nv + 1, B) output allocated
+    here.  nv = 12, 15 and 16 run on their own instantiations, four envs
+    per 128-thread block, with the Hessian's entries and their Cholesky
+    factor in registers (another nv <= 16 on the next larger one, padded
+    inside the kernel).  A larger nv, or one whose instantiation's 4-env
+    block would not fit one block's shared memory, runs on the runtime-nv
+    kernel, which keeps every dof-sized vector and the triangle in shared
+    memory as well, 4, 2 or 1 envs per block.  The kernel's launch shape
+    (`gst_newton_solve_shape`) is zero where one env's region exceeds one
+    block's 232,448 B of shared memory on the H100, and this function
+    raises ValueError there."""
     from .. import kernels
 
     B, nv = a0.shape
-    if nv > NV_MAX:
-        raise NotImplementedError(
-            f"the solver kernel takes nv <= {NV_MAX}, got {nv}")
     NE = efc.aref.shape[0]
     K = efc.con_mu.shape[0]
+    if kernels.launch_shape("gst_newton_solve", nv, NE, efc.neq, efc.nf, efc.nl, K)[0] == 0:
+        raise ValueError(
+            "the solver kernel holds one env in at most 232448 B of shared memory; "
+            f"nv = {nv} with NE = {NE} rows needs more")
     inp = pack_fused_inputs(m, qM, a0, efc, warmstart)
     f32 = torch.float32
     kernels.check(inp["J"], (nv * NE, B), f32, "J")

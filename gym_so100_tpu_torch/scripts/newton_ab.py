@@ -5,9 +5,12 @@ on one GPU.
         --source old=path/to/old/newton_solve.cu \\
         --source new=gym_so100_tpu_torch/csrc/newton_solve.cu
 
-Each source is compiled with the checkout's `csrc/hull_sweep.cu` in one
-nvcc call, as `kernels.py` builds the port, with its flags
-(`kernels.NVCC_FLAGS`), into a library of its own under
+`--define NAME=MACRO[=VALUE]` adds `-DMACRO[=VALUE]` to the build of
+source NAME: `--source wide=gym_so100_tpu_torch/csrc/newton_solve.cu
+--define wide=NEWTON_NVS=` builds no instantiation, so that every nv runs
+on the runtime-nv kernel.  Each source is compiled with the checkout's
+`csrc/hull_sweep.cu` in one nvcc call, as `kernels.py` builds the port,
+with its flags (`kernels.NVCC_FLAGS`), into a library of its own under
 `gym_so100_tpu_torch/_build/ab/`, one build after another; each build's
 nvcc seconds and its ptxas lines (registers, spills, one block per
 instantiation) are printed.  A source whose C entry point takes no nv
@@ -23,7 +26,7 @@ checkout's own modules (its kernels included):
   after 10 moves (the checked state of phase 8);
 * `panda`: the Panda EE scene (nv = 15), 1024 envs, K = 24, after 4
   control steps holding each mocap target on its ee and 8 after moving it
-  3 cm along +x (the checked state of phase 14);
+  3 cm along +x (phase 14's moves, which that phase now cuts to 2 + 6);
 
 every build's output is held bit-equal to that of the first build that ran
 the state, and every build is timed by CUDA events over 20 launches, in 10
@@ -60,14 +63,16 @@ def takes_nv(path):
     return re.search(r"gst_newton_solve\([^)]*int nv,", Path(path).read_text()) is not None
 
 
-def build_all(sources):
-    """Compile every (name, path), one after another; returns {name: (library,
-    takes nv, nvcc seconds, ptxas lines)}."""
+def build_all(sources, defines=None):
+    """Compile every (name, path), one after another, each with its
+    `defines[name]` (-D flags); returns {name: (library, takes nv, nvcc
+    seconds, ptxas lines)}."""
     AB_DIR.mkdir(parents=True, exist_ok=True)
     built = {}
     for name, path in sources:
         out = AB_DIR / f"libnewton_{name}.so"
-        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(out),
+        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, *(defines or {}).get(name, []),
+               "-o", str(out),
                str(kernels.CSRC / "hull_sweep.cu"), str(path)]
         t0 = time.perf_counter()
         res = subprocess.run(cmd, capture_output=True, text=True)
@@ -183,6 +188,8 @@ def main(argv=None):
     ap.add_argument("--source", action="append", required=True, metavar="NAME=PATH",
                     help="a newton_solve.cu to build and time (repeat; the first that "
                          "runs a state is the reference of its bit-equality check)")
+    ap.add_argument("--define", action="append", default=[], metavar="NAME=MACRO[=VALUE]",
+                    help="build source NAME with -DMACRO[=VALUE] (repeat)")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("newton_ab: no CUDA device", file=sys.stderr)
@@ -191,7 +198,11 @@ def main(argv=None):
     for _, path in sources:
         if not Path(path).is_file():
             raise FileNotFoundError(path)
-    built = build_all(sources)
+    defines = {}
+    for d in a.define:
+        name, macro = d.split("=", 1)
+        defines.setdefault(name, []).append(f"-D{macro}")
+    built = build_all(sources, defines)
     for name, (_, nv_arg, seconds, ptxas) in built.items():
         print(f"{name}: nvcc {seconds:.1f} s (with hull_sweep.cu), takes nv: {nv_arg}",
               flush=True)

@@ -31,12 +31,13 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import chip_smoke
 import numpy as np
 import pytest
 import torch
 
 from gym_so100_tpu_torch.envs.ee_env import EE_XML, CartesianBatchedEnv
-from gym_so100_tpu_torch.models.builder import build_model
+from gym_so100_tpu_torch.models.builder import PANDA_XML, build_model
 from gym_so100_tpu_torch.models.scene import Data, State
 from gym_so100_tpu_torch.ops import constraint_lanes, smooth_lanes, solver_lanes
 from gym_so100_tpu_torch.ops import forward as fwd
@@ -336,6 +337,47 @@ def _ee_state(lift_mocap_box):
     return env.m, s, sl, d
 
 
+def _panda_state(B=6, substeps=40):
+    """A float32 batch of the Panda EE scene (K = 24, nv = 15) held for
+    `substeps` from "home", each env's arm joints moved by at most 0.01 rad
+    (seeded) and its mocap target on its ee site: the cube resting on the
+    table in every env, the 7 equality rows (the 6-row weld and the
+    finger-coupling joint) leading the rows."""
+    m, aux = build_model(PANDA_XML, max_contacts=24, device="cpu")
+    kq, kc = aux["keyframes"]["home"]
+    qpos = np.tile(np.asarray(kq, np.float64), (B, 1))
+    qpos[:, :7] += np.random.RandomState(8).uniform(-0.01, 0.01, (B, 7))
+    one = fwd.make_state(m, qpos=kq, ctrl=kc)
+    s = State(qpos=torch.tensor(qpos, dtype=torch.float32), qvel=torch.zeros(B, m.nv),
+              ctrl=one.ctrl.expand(B, -1).clone(),
+              mocap_pos=one.mocap_pos.expand(B, -1, -1).clone(),
+              mocap_quat=one.mocap_quat.expand(B, -1, -1).clone(),
+              qacc_warmstart=torch.zeros(B, m.nv))
+    ee = m.site_id("ee_site")
+    s = s.replace(mocap_pos=smooth_lanes.kinematics(m, s).site_xpos[:, ee][:, None].clone())
+    s, _ = fwd.n_steps_batched(m, s, substeps)
+    return (m, s, *_lanes_data(m, s))
+
+
+def _multicube_state(tmp, cubes, B, substeps):
+    """A float32 batch of chip_smoke.py's multi-cube scene (so100_transfer_
+    cube.xml and `cubes` free cubes resting on the table; K = 32, nv = 12 +
+    6 cubes) after `substeps` from its start (chip_smoke._multicube_start:
+    qpos0, the arm joints moved by a seeded draw)."""
+    m, _ = build_model(str(chip_smoke.write_multicube_scene(tmp, cubes)), max_contacts=32,
+                       device="cpu")
+    s, _ = fwd.n_steps_batched(m, chip_smoke._multicube_start(m, B), substeps)
+    return (m, s, *_lanes_data(m, s))
+
+
+def _lanes_data(m, s):
+    """(the smooth stage's lanes outputs, the Data the narrowphase reads)."""
+    sl = smooth_lanes.forward_smooth_lanes(m, s)
+    return sl, Data(geom_xpos=sl["geom_xpos"], geom_xmat=sl["geom_xmat"],
+                    site_xpos=sl["site_xpos"], site_xmat=sl["site_xmat"],
+                    subtree_com=sl["subtree_com0"][:, None], cdof=sl["cdof"])
+
+
 def _hull_inputs(contact_state, lanes=None):
     m, _, _, d = contact_state
     tb = hull_lanes.hull_tables(m)
@@ -387,3 +429,50 @@ def _problem(contact_state, dtype, lanes=None):
 FULL_BUDGETS = (solver_lanes.NEWTON_ITERS, solver_lanes.LS_ITERS, solver_lanes.BRACKET_ITERS)
 EPS64 = 2.220446049250313e-16
 PERTURB_SAMPLES = 40      # one-ulp perturbations of the plain solve's inputs
+
+
+def plain_floor(state):
+    """The state's float64 solver problem, the float32 budgets and tol, the
+    plain solve under them, and how far PERTURB_SAMPLES one-ulp
+    perturbations of the plain solve's inputs move each lane (wq, wf) and
+    whether they change its iteration count (moved_n)."""
+    m, qM, a0, efc, warm = problem = _problem(state, torch.float64)
+    tol = solver_lanes.budgets(m, torch.float32)[-1]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(solver_lanes, "budgets", lambda m, dtype: (*FULL_BUDGETS, tol))
+        qp, fp, npl = solver_lanes.solve_plain(m, qM, a0, efc, warm)
+        gen = torch.Generator().manual_seed(7)
+        ulp = lambda t: t * (1 + EPS64 * torch.randn(t.shape, generator=gen, dtype=t.dtype))
+        wq = torch.zeros(qp.shape[0], dtype=qp.dtype)
+        wf = torch.zeros(fp.shape[0], dtype=fp.dtype)
+        moved_n = torch.zeros(npl.shape, dtype=torch.bool)
+        for _ in range(PERTURB_SAMPLES):
+            q2, f2, n2 = solver_lanes.solve_plain(
+                m, ulp(qM), ulp(a0),
+                dataclasses.replace(efc, J=ulp(efc.J), aref=ulp(efc.aref), D=ulp(efc.D)), warm)
+            wq = torch.maximum(wq, (q2 - qp).abs().amax(1))
+            wf = torch.maximum(wf, (f2 - fp).abs().amax(1))
+            moved_n |= n2 != npl
+    return dict(problem=problem, tol=tol, plain=(qp, fp, npl), wq=wq, wf=wf,
+                moved_n=moved_n)
+
+
+def check_floor(lib, floor):
+    """The kernel source's solve against the plain one (a `plain_floor`):
+    on the lanes that no one-ulp perturbation of the plain solve moves past
+    1e-9 of scale or to another iteration count, equal to 1e-9 with the
+    same count on at least 95% of them; on the others within twice what the
+    perturbations moved the lane, and another count only where they
+    changed it."""
+    qk, fk, nk = _solve_host(lib, *floor["problem"], FULL_BUDGETS, floor["tol"])
+    qp, fp, npl = floor["plain"]
+    wq, wf, moved_n = floor["wq"], floor["wf"], floor["moved_n"]
+    sq, sf = qp.abs().amax().clamp(min=1.0), fp.abs().amax().clamp(min=1.0)
+    dq, df = (qk - qp).abs().amax(1), (fk - fp).abs().amax(1)
+    same_x = (dq <= 1e-9 * sq) & (df <= 1e-9 * sf)
+    same_n = nk == npl.double()
+    stable = (wq <= 1e-9 * sq) & (wf <= 1e-9 * sf) & ~moved_n
+    assert stable.any(), "no lane off the knife edges"
+    assert float((same_x & same_n)[stable].double().mean()) >= 0.95
+    assert (dq[~same_x] <= 2 * wq[~same_x]).all() and (df[~same_x] <= 2 * wf[~same_x]).all()
+    assert not (~same_n & ~moved_n).any()

@@ -22,29 +22,26 @@ the cube resting on the table in every env, and the 7 equality rows (the
 * The check fails for mutated copies of the source: the triangle entries
   a lane owns fixed at 3 again (covers 96 of the 120 at nv = 15), and the
   padded dofs' qM block made singular (see the test for which entries).
-* nv above 16: the entry point refuses it, and so does `solve_fused`.
+* An nv and NE whose single env's region exceeds one block's shared
+  memory: the entry point refuses them (a zero launch shape), and so does
+  `solve_fused`, which reads that shape.
 """
 
-import dataclasses
-
-import numpy as np
 import pytest
 import torch
 from kernels_host import (  # noqa: F401 (fixtures)
-    EPS64,
     FULL_BUDGETS,
-    PERTURB_SAMPLES,
+    _panda_state,
     _problem,
     _solve_host,
     _solver_lib,
+    check_floor,
     contact_state,
     host_tmp,
+    plain_floor,
 )
 
-from gym_so100_tpu_torch.models.builder import PANDA_XML, build_model
-from gym_so100_tpu_torch.models.scene import Data, State
-from gym_so100_tpu_torch.ops import constraint_lanes, smooth_lanes, solver_lanes
-from gym_so100_tpu_torch.ops import forward as fwd
+from gym_so100_tpu_torch.ops import constraint_lanes, solver_lanes
 from gym_so100_tpu_torch.ops.collision import narrowphase
 
 PANDA_ENVS = 6
@@ -53,55 +50,19 @@ HOLD_SUBSTEPS = 40      # 4 control steps
 
 @pytest.fixture(scope="module")
 def panda_state():
-    m, aux = build_model(PANDA_XML, max_contacts=24, device="cpu")
-    kq, kc = aux["keyframes"]["home"]
-    B = PANDA_ENVS
-    qpos = np.tile(np.asarray(kq, np.float64), (B, 1))
-    qpos[:, :7] += np.random.RandomState(8).uniform(-0.01, 0.01, (B, 7))
-    one = fwd.make_state(m, qpos=kq, ctrl=kc)
-    s = State(qpos=torch.tensor(qpos, dtype=torch.float32), qvel=torch.zeros(B, m.nv),
-              ctrl=one.ctrl.expand(B, -1).clone(),
-              mocap_pos=one.mocap_pos.expand(B, -1, -1).clone(),
-              mocap_quat=one.mocap_quat.expand(B, -1, -1).clone(),
-              qacc_warmstart=torch.zeros(B, m.nv))
-    ee = m.site_id("ee_site")
-    s = s.replace(mocap_pos=smooth_lanes.kinematics(m, s).site_xpos[:, ee][:, None].clone())
-    s, _ = fwd.n_steps_batched(m, s, HOLD_SUBSTEPS)
-    sl = smooth_lanes.forward_smooth_lanes(m, s)
-    d = Data(geom_xpos=sl["geom_xpos"], geom_xmat=sl["geom_xmat"],
-             site_xpos=sl["site_xpos"], site_xmat=sl["site_xmat"],
-             subtree_com=sl["subtree_com0"][:, None], cdof=sl["cdof"])
+    m, s, sl, d = state = _panda_state(PANDA_ENVS, HOLD_SUBSTEPS)
     efc = constraint_lanes.make_efc_from_lanes(m, d, s, narrowphase.collide_batched_lanes(m, d))
     assert m.nv == 15 and efc.neq == 7 and (efc.D[:7] > 0).all()
     assert efc.con_active.any(0).all(), "some env has no active contact"
-    return m, s, sl, d
+    return state
 
 
 @pytest.fixture(scope="module")
 def panda_floor(panda_state):
     """The float64 problem, the float32 budgets and tol, the plain solve,
     and how far PERTURB_SAMPLES one-ulp perturbations of the plain solve's
-    inputs move each lane (wq, wf) and whether they change its iteration
-    count (moved_n)."""
-    m, qM, a0, efc, warm = problem = _problem(panda_state, torch.float64)
-    tol = solver_lanes.budgets(m, torch.float32)[-1]
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(solver_lanes, "budgets", lambda m, dtype: (*FULL_BUDGETS, tol))
-        qp, fp, npl = solver_lanes.solve_plain(m, qM, a0, efc, warm)
-        gen = torch.Generator().manual_seed(7)
-        ulp = lambda t: t * (1 + EPS64 * torch.randn(t.shape, generator=gen, dtype=t.dtype))
-        wq = torch.zeros(qp.shape[0], dtype=qp.dtype)
-        wf = torch.zeros(fp.shape[0], dtype=fp.dtype)
-        moved_n = torch.zeros(npl.shape, dtype=torch.bool)
-        for _ in range(PERTURB_SAMPLES):
-            q2, f2, n2 = solver_lanes.solve_plain(
-                m, ulp(qM), ulp(a0),
-                dataclasses.replace(efc, J=ulp(efc.J), aref=ulp(efc.aref), D=ulp(efc.D)), warm)
-            wq = torch.maximum(wq, (q2 - qp).abs().amax(1))
-            wf = torch.maximum(wf, (f2 - fp).abs().amax(1))
-            moved_n |= n2 != npl
-    return dict(problem=problem, tol=tol, plain=(qp, fp, npl), wq=wq, wf=wf,
-                moved_n=moved_n)
+    inputs move each lane (`kernels_host.plain_floor`)."""
+    return plain_floor(panda_state)
 
 
 @pytest.fixture(scope="module")
@@ -110,28 +71,8 @@ def libs(host_tmp):
             for nvs in ((12,), (15,), (16,))}
 
 
-def _check(lib, floor):
-    """The kernel source's solve against the plain one: on the lanes that
-    no one-ulp perturbation of the plain solve moves past 1e-9 of scale or
-    to another iteration count, equal to 1e-9 with the same count on at
-    least 95% of them; on the others within twice what the perturbations
-    moved the lane, and another count only where they changed it."""
-    qk, fk, nk = _solve_host(lib, *floor["problem"], FULL_BUDGETS, floor["tol"])
-    qp, fp, npl = floor["plain"]
-    wq, wf, moved_n = floor["wq"], floor["wf"], floor["moved_n"]
-    sq, sf = qp.abs().amax().clamp(min=1.0), fp.abs().amax().clamp(min=1.0)
-    dq, df = (qk - qp).abs().amax(1), (fk - fp).abs().amax(1)
-    same_x = (dq <= 1e-9 * sq) & (df <= 1e-9 * sf)
-    same_n = nk == npl.double()
-    stable = (wq <= 1e-9 * sq) & (wf <= 1e-9 * sf) & ~moved_n
-    assert stable.any(), "no lane off the knife edges"
-    assert float((same_x & same_n)[stable].double().mean()) >= 0.95
-    assert (dq[~same_x] <= 2 * wq[~same_x]).all() and (df[~same_x] <= 2 * wf[~same_x]).all()
-    assert not (~same_n & ~moved_n).any()
-
-
 def test_nv15_source_equals_plain_in_float64(libs, panda_floor):
-    _check(libs[(15,)], panda_floor)
+    check_floor(libs[(15,)], panda_floor)
 
 
 def test_padded_panda_problem_equals_its_instantiation(libs, panda_floor):
@@ -180,31 +121,53 @@ def test_check_fails_for_mutated_source(host_tmp, panda_floor, mutation):
     mutate, nvs = MUTATIONS[mutation]
     lib = _solver_lib(host_tmp, "double", mutate, tag=f"_{mutation}", nvs=nvs)
     with pytest.raises(AssertionError):
-        _check(lib, panda_floor)
+        check_floor(lib, panda_floor)
 
 
-def test_nv_above_16_is_refused(libs, panda_floor):
-    """The entry point returns cudaErrorInvalidValue (1 in the shim) and a
-    zero launch shape for nv = 17 and writes nothing; `solve_fused`
-    raises, naming the limit, before it touches the card."""
+def test_env_region_above_the_block_limit_is_refused(host_tmp, panda_floor, monkeypatch):
+    """An nv and NE whose single env's region exceeds one block's 232,448 B
+    of shared memory (nv = 40, NE = 1500: J alone is 240 KB): the entry
+    point returns cudaErrorInvalidValue (1 in the shim) and a zero launch
+    shape and writes nothing; `solve_fused`, given this build as its
+    library, raises before it touches the card (meta tensors), naming the
+    limit, nv and NE.  Below the limit the launch shape takes 4, 2 and then
+    1 envs per block as NE grows at nv = 40, and nv = 16 with NE = 1500,
+    whose instantiation's 4-env block does not fit, still gets a launch
+    shape (the runtime-nv kernel's, at fewer envs).  A float32 build: the
+    float64 one counts its shared memory in doubles."""
     import ctypes
+    import dataclasses
 
-    lib = libs[(16,)]
+    from gym_so100_tpu_torch import kernels
+
+    lib = _solver_lib(host_tmp, "float", tag="_nv16_float", nvs=(16,))
     (m, qM, a0, efc, warm), tol = panda_floor["problem"], panda_floor["tol"]
-    NE, B = efc.aref.shape
+    B = a0.shape[0]
     K = efc.con_mu.shape[0]
-    out = torch.full((2 * 17 + 1, B), float("nan"), dtype=torch.float64)
-    err = lib.gst_newton_solve(*[None] * 8, out.data_ptr(), 17, NE, efc.neq, efc.nf,
+    nv, NE = 40, 1500
+    out = torch.full((2 * nv + 1, B), float("nan"), dtype=torch.float32)
+    err = lib.gst_newton_solve(*[None] * 8, out.data_ptr(), nv, NE, efc.neq, efc.nf,
                                efc.nl, K, B, *FULL_BUDGETS, tol, None)
     assert err == 1 and torch.isnan(out).all()
-    shape = (ctypes.c_int * 3)(7, 7, 7)
     lib.gst_newton_solve_shape.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    lib.gst_newton_solve_shape(17, NE, efc.neq, efc.nf, efc.nl, K,
-                               ctypes.cast(shape, ctypes.c_void_p))
-    assert tuple(shape) == (0, 0, 0)
-    lib.gst_newton_solve_shape(16, NE, efc.neq, efc.nf, efc.nl, K,
-                               ctypes.cast(shape, ctypes.c_void_p))
-    assert tuple(shape)[:2] == (4, 128) and shape[2] > 0
-    big = torch.zeros(B, 17, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="nv <= 16"):
-        solver_lanes.solve_fused(m, torch.zeros(17, 17, B), big, efc, big)
+
+    def shape_of(nv, NE):
+        shape = (ctypes.c_int * 3)(7, 7, 7)
+        lib.gst_newton_solve_shape(nv, NE, efc.neq, efc.nf, efc.nl, K,
+                                   ctypes.cast(shape, ctypes.c_void_p))
+        return tuple(shape)
+
+    assert shape_of(nv, NE) == (0, 0, 0)
+    assert shape_of(16, efc.aref.shape[0])[:2] == (4, 128)
+    assert shape_of(16, NE)[0] in (1, 2)
+    seen = set()
+    for NE_ in (170, 400, 700, 1300, 1400, NE):
+        E, threads, smem = shape_of(nv, NE_)
+        assert threads == 32 * E and smem <= 232448 and (smem > 0) == (E > 0)
+        seen.add(E)
+    assert seen == {4, 2, 1, 0}
+    monkeypatch.setattr(kernels, "library", lambda: lib)
+    meta = lambda *shape: torch.empty(*shape, device="meta")
+    big = dataclasses.replace(efc, J=meta(nv, NE, B), aref=meta(NE, B), D=meta(NE, B))
+    with pytest.raises(ValueError, match=f"232448 B.*nv = {nv} with NE = {NE}"):
+        solver_lanes.solve_fused(m, meta(nv, nv, B), meta(B, nv), big, meta(B, nv))
