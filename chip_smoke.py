@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Phases, each printed on its own line:
- 1. build both CUDA kernels from gym_so100_tpu_torch/csrc with nvcc (sm_90a)
-    and print each kernel's ptxas lines (registers, spills), the Newton
+ 1. build the CUDA kernels from gym_so100_tpu_torch/csrc with one nvcc call
+    (sm_90a) and print each kernel's ptxas lines (registers, spills), the Newton
     kernel's for each instantiated nv and for its runtime-nv kernel;
  2. print the card's name and power limit (nvidia-smi);
  3. print each kernel's launch shape (envs per block, threads, dynamic
@@ -134,7 +134,17 @@ Phases, each printed on its own line:
     kernel on rows with one cube's J zeroed must miss), timed; then the
     one-extra-cube scene (nv = 18) at 1024 envs the same way, the Newton
     kernel checked and timed there;
-16. print the build, ptxas, launch-shape and check lines again (so that
+16. the chain probe (scripts/probe_chain.py, the port of
+    devtools/probe_pallas.py) at its B = 4096 on the probe's inputs: the
+    kernel csrc/chain_probe.cu against chain_plain on the card at n = 50
+    and n = 10, bit-equal on the finite components, the non-finite ones
+    the same set with the same infinities, every lane finite at n = 10;
+    one launch per call, counted; then the probe's rows (a) eager
+    chain_body_fn at n = 50, with the device kernels of one call counted
+    in a profiler trace, (b) at n = 200 and the cost of one more iteration,
+    (d) the kernel, and (p) chain_plain, counted, by CUDA events, and the
+    kernel's device time per launch from a profiler trace;
+17. print the build, ptxas, launch-shape and check lines again (so that
     the end of the output holds them), the kernel table as one JSON line
     (per kernel: the K = 16 row, the statistic its check bounds with that
     bound, the training phase's launches, check and times under
@@ -147,7 +157,8 @@ Phases, each printed on its own line:
     and nv under "panda_batched", and the hull kernel's 2- and 1-env
     blocks under "padded" and its five-cube launches, check and times under
     "multicube"; then a row of the runtime-nv Newton kernel from the
-    five-cube phase, with its nv = 18 check and times under "nv18"), the
+    five-cube phase, with its nv = 18 check and times under "nv18"; then
+    the chain probe's row, with its probe rows under "probe"), the
     single-env, Panda, batched Panda, five-cube and trace phases' numbers as
     a JSON line before it, the card, then the result line
     {"ok": true, "device": {...}}.
@@ -303,6 +314,9 @@ MC_STEPS = 4
 MC_JITTER = 0.01
 MC_REST_TOL = 5e-3    # m: the resting cubes' height from 0.02
 MC18_ENVS = 1024      # the one-extra-cube scene (nv = 18)
+# phase 16: the chain probe (scripts/probe_chain.py), at its own B = 4096
+CHAIN_SHORT = 10     # iterations after which every lane of the probe's inputs is finite
+
 RECAP = []   # the build, launch-shape and check lines, printed again at the end
 
 
@@ -2223,6 +2237,66 @@ def run_multicube(card):
     return rows, row18, numbers
 
 
+def run_chain_probe(card):
+    """The chain probe's kernel (csrc/chain_probe.cu) on the probe's inputs
+    at its B: held to chain_plain on the card at n = 50 and n = 10, bit-equal
+    on the finite components, the non-finite ones the same set (nan where
+    nan, the same infinities), every lane finite at n = 10; one launch per
+    call, counted; then rows (a), (b), (d) and (p) of the probe's `main`,
+    counted.  Returns the kernel's row."""
+    import torch
+
+    from gym_so100_tpu_torch import kernels
+    from gym_so100_tpu_torch.scripts import probe_chain as pc
+
+    q, v, M = (torch.from_numpy(a).to("cuda") for a in pc.probe_inputs(pc.B))
+    log_shape("chain_probe", kernels.launch_shape("gst_chain_probe", pc.B), pc.B)
+    checks = {}
+    for n in (pc.N, CHAIN_SHORT):
+        c = pc.compare(pc.chain_fused(q, v, M, n), pc.chain_plain(q, v, M, n))
+        torch.cuda.synchronize()
+        log(f"chain probe check n = {n}: max abs err {c['max_abs_err']:.3g} over the finite "
+            f"components, non-finite the same set {c['same_nonfinite']}, "
+            f"{c['nonfinite_lanes']}/{c['lanes']} lanes non-finite", recap=True)
+        assert c["same_nonfinite"], f"chain probe n = {n}: non-finite components differ"
+        assert c["max_abs_err"] == 0.0, f"chain probe n = {n}: differs by {c['max_abs_err']}"
+        checks[n] = c
+    assert checks[CHAIN_SHORT]["nonfinite_lanes"] == 0, "chain probe: n = 10 not finite"
+    pc.chain_fused.launches = 0
+    pc.chain_fused(q, v, M, pc.N)
+    torch.cuda.synchronize()
+    assert pc.chain_fused.launches == 1, f"chain probe: {pc.chain_fused.launches} launches"
+    # the probe's rows, counted
+    pc.chain_fused.launches = 0
+    res = pc.timings(q, v, M, rows="abdp", log=log, card=card)
+    torch.cuda.synchronize()
+    launches = pc.chain_fused.launches
+    assert launches == res["kernel_calls"], (launches, res["kernel_calls"])
+    # least work: 16 floats read and 3 written per env; OPS_PER_ITER per
+    # env and iteration
+    nbytes = 4 * (q.numel() + v.numel() + M.numel() + 3 * pc.B)
+    bound = _bound(nbytes, pc.OPS_PER_ITER * pc.N * pc.B)
+    # the kernel's own device time where the trace has it; a call from
+    # Python takes longer than the kernel, so the events time the host
+    ms = res.get("d_device_ms") or res["d_ms"]
+    log(f"kernel chain_probe: {ms:.4f} ms per launch ("
+        f"{'profiler' if res.get('d_device_ms') else 'CUDA events'}; {res['d_ms']:.4f} ms per "
+        f"call from Python), bound {bound['bound_ms']:.6f} ms ({bound['bound_by']}), plain "
+        f"{res['p_ms']:.4f} ms, {launches} launches, on {card}", recap=True)
+    return dict(
+        name="chain_probe", route="cuda", source="gym_so100_tpu_torch/csrc/chain_probe.cu",
+        replaces="devtools/probe_pallas.py:115", launches=launches,
+        max_abs_err=checks[pc.N]["max_abs_err"], ms=ms, call_ms=res["d_ms"],
+        plain_ms=res["p_ms"], **bound, library_ms=None,
+        check_stat="max |kernel - plain| over the finite components at n = 50 and 10 "
+                   "(the non-finite ones equal as sets)",
+        check_value=max(c["max_abs_err"] for c in checks.values()), check_bound=0.0,
+        nonfinite_lanes={str(n): c["nonfinite_lanes"] for n, c in checks.items()},
+        probe={k: res.get(k) for k in ("a_ms", "a_kernels", "b_ms", "us_per_iter",
+                                       "us_per_kernel", "d_over_a")},
+    )
+
+
 def main():
     try:
         import torch
@@ -2382,7 +2456,13 @@ def main():
     multicube, mc_nv18, mc_numbers = run_multicube(card)
     log(f"multi-cube phase: {time.perf_counter() - t0:.1f} s wall time", recap=True)
 
-    # 16. results
+    # 16. the chain probe's kernel, counted
+    t0 = time.perf_counter()
+    chain = run_chain_probe(card)
+    chain["phase_s"] = time.perf_counter() - t0
+    log(f"chain probe phase: {chain['phase_s']:.1f} s wall time on {card}", recap=True)
+
+    # 17. results
     for line in RECAP:
         log(f"recap: {line}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
@@ -2415,7 +2495,7 @@ def main():
          "batch_first": batch_first[row["name"]],
          "panda_batched": {k: panda_batched[row["name"]][k] for k in train_keys + ("nv",)},
          **{k: row[k] for k in ("padded", "multicube") if k in row}}
-        for row in rows] + [wide]}), flush=True)
+        for row in rows] + [wide, chain]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

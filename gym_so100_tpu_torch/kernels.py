@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("hull_sweep.cu", "newton_solve.cu")
+SOURCES = ("hull_sweep.cu", "newton_solve.cu", "chain_probe.cu")
 # -fmad=false: no multiply-add contraction, so every product and sum rounds
 # as in the plain PyTorch versions' separate elementwise ops; with
 # contraction on, the solver parted from its plain version far beyond the
@@ -97,6 +97,10 @@ _SIGNATURES = {
     "gst_newton_solve": ([_P] * 9 + [_I] * 10 + [_F, _P], ctypes.c_int),
     # nv, NE, neq, nf, nl, K, shape[3]
     "gst_newton_solve_shape": ([_I] * 6 + [_P], None),
+    # q, v, M, out, n, B, stream
+    "gst_chain_probe": ([_P] * 4 + [_I] * 2 + [_P], ctypes.c_int),
+    # B, shape[3]
+    "gst_chain_probe_shape": ([_I, _P], None),
 }
 
 

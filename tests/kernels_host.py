@@ -38,6 +38,14 @@ import torch
 
 from gym_so100_tpu_torch.envs.ee_env import EE_XML, CartesianBatchedEnv
 from gym_so100_tpu_torch.models.builder import PANDA_XML, build_model
+
+# One intra-op thread per test process.  The suite runs in several worker
+# processes (pytest-xdist), each of which imports every test module, this
+# one included, before it runs a test; with torch's default of one OpenMP
+# thread per core in each of them, the workers' threads spun against each
+# other and a group of six port test files took 339 s on six workers
+# where it takes 76 s with one thread each.
+torch.set_num_threads(1)
 from gym_so100_tpu_torch.models.scene import Data, State
 from gym_so100_tpu_torch.ops import constraint_lanes, smooth_lanes, solver_lanes
 from gym_so100_tpu_torch.ops import forward as fwd

@@ -23,7 +23,10 @@ float64 both sides collide hull pairs with the per-env colliders
 (`collide_batched_lanes` runs `collide_batched`: the AABB cull to K/2
 slots, then GJK/EPA).  Every test runs on two models: the scene with that
 box lifted 10 m above its body, out of reach ("lifted"; the weld, the cube
-and everything else stay), and the scene as it is ("in_place").
+and everything else stay), here, and the scene as it is ("in_place"), in
+tests/test_torch_ee_in_place.py, which runs this module's tests on its
+own model (each model's JAX substep compiles for minutes; two files let
+two workers compile them).
 
 In place, the box lies face to face with jaw hulls, where the EPA's
 closest face is not unique: JAX's own collider, its geom poses moved by
@@ -104,17 +107,23 @@ def close_or_floor(ours, theirs, copies, tol, name):
     assert dev <= max(tol, 2 * spread), (name, dev, spread)
 
 
-@pytest.fixture(scope="module", params=["lifted", "in_place"])
-def models(request):
+def build_models(scene):
+    """JAX's float64 EE model, its mocap box "lifted" or "in_place", and the
+    port's through the bridge."""
     assert Path(EE_XML).name == "so100_transfer_cube_ee.xml"
     mj, _ = jax_build_model(EE_XML, max_contacts=K)
     mj = mj.astype(jnp.float64)
     bodyid = np.asarray(mj.geom_bodyid)
     box = [g for g in range(mj.ngeom) if np.asarray(mj.body_mocapid)[bodyid[g]] >= 0]
     assert len(box) == 1
-    if request.param == "lifted":
+    if scene == "lifted":
         mj = dataclasses.replace(mj, geom_pos=mj.geom_pos.at[box[0], 2].add(10.0))
     return mj, model_from_numpy(_leaves(mj))
+
+
+@pytest.fixture(scope="module", params=["lifted"])
+def models(request):
+    return build_models(request.param)
 
 
 @pytest.fixture(scope="module")

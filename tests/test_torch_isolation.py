@@ -200,3 +200,9 @@ def test_wrappers_never_fall_back_for_device_tensors():
         i1=meta(129, dt=torch.int32), i2=meta(129, dt=torch.int32), vtot=604)
     with pytest.raises(ValueError, match="CUDA tensor"):
         hull_lanes.sweep_h(meta(75, 8), meta(225, 8), tb)
+    from gym_so100_tpu_torch.scripts import probe_chain
+
+    probe_chain.chain_fused.launches = 0
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        probe_chain.chain_fused(meta(4, 8), meta(3, 8), meta(9, 8))
+    assert probe_chain.chain_fused.launches == 0

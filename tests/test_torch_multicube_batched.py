@@ -18,7 +18,9 @@ state is handed to both packages.
   perturbations of the port's start move that lane (the rule of
   tests/test_torch_panda_batched.py), with equal candidate counts; the
   bound must reject the port's substep with the extra cube's contact time
-  constant doubled (a planted fault).
+  constant doubled (a planted fault).  JAX runs the substep op by op
+  (`jax.disable_jit()`, about a minute): its jit compile took 4-8 minutes
+  on an 8-core CPU beside the suite's other workers.
 * nv = 36, float64, 4 envs: the Newton solve alone.  The port's
   `solve_plain` against JAX's `solver_lanes.solve_lanes` (the scan path) on
   the same float64 problem (the settled state's fields in float64, the
@@ -90,7 +92,8 @@ def substep(scenes):
     mj = mj.astype(jnp.float32)
     sj = JaxState(**{k: jnp.asarray(getattr(s, k).numpy()) for k in FIELDS})
     out_t, ncon_t = fwd.n_steps_batched(m, s, 1)
-    out_j, ncon_j = jax.jit(lambda s: jax_fwd.n_steps_batched(mj, s, 1))(sj)
+    with jax.disable_jit():
+        out_j, ncon_j = jax_fwd.n_steps_batched(mj, sj, 1)
     gen = torch.Generator().manual_seed(5)
     eps = torch.finfo(torch.float32).eps
     spread = {k: torch.zeros(B, dtype=torch.float64) for k in ARRAYS}

@@ -19,10 +19,13 @@ port's start move that lane (the floor rule of chip_smoke.py's solver
 check), after one substep:
 
 * float32: the fixed bound 1e-5 of each array's largest magnitude, and
-  the candidate counts equal.  One jitted JAX program serves every case
-  (JAX compiles and runs it for minutes on the CPU); as a negative
-  control, the bound must reject the port's substep with the finger
-  coupling dropped.
+  the candidate counts equal.  One JAX run serves every case; as a
+  negative control, the bound must reject the port's substep with the
+  finger coupling dropped.
+
+JAX runs the substep op by op (`jax.disable_jit()`): jitted, XLA took
+about 2 minutes to compile it and 4 more to run it at 4 envs on the CPU,
+op by op about one minute in all.
 * float64, slow-marked for its JAX run: the fixed bound 1e-10 (that of
   tests/test_torch_panda.py).
 """
@@ -81,7 +84,8 @@ def _substeps(dtype):
     m, s, sj = _start(dtype)
     mj = _jax_model(dtype)
     out_t, ncon_t = fwd.n_steps_batched(m, s, 1)
-    out_j, ncon_j = jax.jit(lambda s: jax_fwd.n_steps_batched(mj, s, 1))(sj)
+    with jax.disable_jit():
+        out_j, ncon_j = jax_fwd.n_steps_batched(mj, sj, 1)
     gen = torch.Generator().manual_seed(5)
     eps = torch.finfo(dtype).eps
     spread = {k: torch.zeros(B, dtype=torch.float64) for k in ARRAYS}
