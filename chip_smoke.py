@@ -133,7 +133,10 @@ Phases, each printed on its own line:
     hull tables bit-equal, the Newton solve by the floor rule, which the
     kernel on rows with one cube's J zeroed must miss), timed; then the
     one-extra-cube scene (nv = 18) at 1024 envs the same way, the Newton
-    kernel checked and timed there;
+    kernel checked and timed there; the runtime-nv kernel's launch shape
+    (one env per block), its ptxas lines and, at nv = 36, the mean Newton
+    iteration count and the mean over groups of 4 consecutive envs of
+    their largest (the iterations a block of 4 envs would wait for);
 16. the chain probe (scripts/probe_chain.py, the port of
     devtools/probe_pallas.py) at its B = 4096 on the probe's inputs: the
     kernel csrc/chain_probe.cu against chain_plain on the card at n = 50
@@ -373,6 +376,21 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def ptxas_lines(kernel):
+    """The ptxas lines (spills, registers) of the kernel whose mangled
+    name contains `kernel`, from the last build's log (none if it was
+    cached)."""
+    from gym_so100_tpu_torch import kernels
+
+    out, inside = [], False
+    for line in kernels.build_info.get("log", "").splitlines():
+        if "Compiling entry function" in line:
+            inside = kernel in line
+        elif inside and ("registers" in line or "spill" in line):
+            out.append(line.strip())
+    return out
 
 
 def log_shape(name, shape, B):
@@ -640,6 +658,7 @@ def check_solver(env, es, timed, floor_samples=0, fault=None):
                 + nv ** 3 / 3 + 2 * nv * nv)
     ops = float((nk.float() * per_iter).sum())
     log(f"solver: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    n = nk.double()
     return dict(
         name="newton_solve", route="cuda",
         source="gym_so100_tpu_torch/csrc/newton_solve.cu",
@@ -648,6 +667,8 @@ def check_solver(env, es, timed, floor_samples=0, fault=None):
         **_bound(nbytes, ops), library_ms=None,
         check_stat="max |kernel qacc - plain qacc| / max(rms(plain qacc), 1)",
         check_value=st["qmax"], check_bound=bounds["qmax"], NE=NE, launch_shape=shape,
+        niter_mean=float(n.mean()),
+        niter_max4_mean=float(n[:B - B % 4].view(-1, 4).amax(1).mean()),
     )
 
 
@@ -2229,8 +2250,15 @@ def run_multicube(card):
         f"{row18['bound_ms']:.4f}, plain {row18['plain_ms']:.4f}) per launch; on {card}",
         recap=True)
     rows["hull_sweep"].update(launches=launches["hull_sweep"], G=tb.G, P=tb.P)
-    rows["newton_solve"].update(launches=launches["newton_solve"], nv=m.nv,
-                                envs_per_block=shape[0], smem_bytes=shape[2])
+    wide = rows["newton_solve"]
+    ptxas = ptxas_lines("newton_solve_wide")
+    log(f"multi-cube Newton kernel (runtime nv): {shape[0]} env per block, {shape[1]} "
+        f"threads ({shape[1] // 32} warps), {shape[2]} B of shared memory; ptxas: "
+        f"{'; '.join(ptxas) or 'not in the log (a cached build)'}; nv = {m.nv}: niter mean "
+        f"{wide['niter_mean']:.4f}, mean over groups of 4 envs of their max "
+        f"{wide['niter_max4_mean']:.4f}", recap=True)
+    wide.update(launches=launches["newton_solve"], nv=m.nv, envs_per_block=shape[0],
+                threads_per_block=shape[1], smem_bytes=shape[2], ptxas=ptxas)
     row18.update(launches=launches18["newton_solve"], nv=m18.nv)
     numbers = dict(step_ms=step, env_steps_per_s=MC_ENVS / step * 1e3, ncon_max=ncon,
                    step_ms_nv18=step18, env_steps_per_s_nv18=MC18_ENVS / step18 * 1e3)
@@ -2481,8 +2509,9 @@ def main():
     wide = {**{k: multicube["newton_solve"][k] for k in keys},
             "name": "newton_solve_wide", "nv": multicube["newton_solve"]["nv"],
             "NE": multicube["newton_solve"]["NE"],
-            "envs_per_block": multicube["newton_solve"]["envs_per_block"],
-            "smem_bytes": multicube["newton_solve"]["smem_bytes"],
+            **{k: multicube["newton_solve"][k] for k in (
+                "envs_per_block", "threads_per_block", "smem_bytes", "ptxas", "niter_mean",
+                "niter_max4_mean")},
             "nv18": {k: mc_nv18[k] for k in train_keys + ("nv",)}}
     print(json.dumps({"kernels": [
         {**{k: row[k] for k in keys},

@@ -1,4 +1,5 @@
-// Whole Newton constraint solve, one warp per env.
+// Whole Newton constraint solve: one warp per env for nv up to 16, one
+// block of 4 warps per env above (newton_solve_wide).
 //
 // Replaces the Pallas kernel gym_so100_tpu/ops/solver_lanes.py::
 // _solve_fused_pallas.  Per env it minimizes the constraint cost over
@@ -65,20 +66,7 @@
 // - nv above the largest instantiation, and an nv whose instantiation's
 //   4-env block does not fit one block's shared memory (many contact
 //   rows), run on one more kernel, which reads nv at run time
-//   (newton_solve_wide, Layout<0>): every dof-sized vector (x, x_new, the
-//   direction, the gradient, J'g, M d, the Cholesky residual) lives in the
-//   env's shared region, dof v handled by lane
-//   v % 32 in slot v / 32, and the triangle and its factor too, entry t
-//   owned by lane t % 32.  J'g and the force are summed one dof at a time
-//   from per-row weights kept in shared memory.  Each sum and product is
-//   the one the instantiations compute, in the same order, so an nv the
-//   instantiations also take gives the same bits on either kernel (the
-//   host tests hold them equal at nv = 12 and 15).  It runs 4 envs per
-//   block where their regions fit one block's shared memory, else 2, else
-//   1, and refuses (cudaErrorInvalidValue, a zero launch shape) an nv and
-//   NE whose single env's region exceeds it: the counterpart of the Pallas
-//   kernel's VMEM bound.  At nv = 36, NE = 170, K = 32 an env takes about
-//   39 KB, 4 envs 155 KB: one block, 4 warps, per SM.
+//   (newton_solve_wide, Layout<0>, below).
 // - Occupancy (nv = 12, K = 16): about 7.9 KB of shared memory per env
 //   (31.9 KB per 4-env block) and __launch_bounds__(128, 4), so at most
 //   128 registers and no spills (x, x_new and the direction are kept in
@@ -91,6 +79,46 @@
 //   cores stay out: TF32 keeps about three digits, and the products are
 //   at most 16 x 16 per env.
 //
+// The runtime-nv kernel, newton_solve_wide: one env per block of 4 warps.
+// - What bounded it: latency.  Its first design ran the instantiations'
+//   warp per env over run-time nv, 4 envs per block: at nv
+//   = 36, NE = 170, K = 32 an env's region is ~39 KB, so one 155 KB block,
+//   4 warps, per SM, one per scheduler with nothing to hide a latency, and
+//   each env's solve one serial chain on 32 lanes (5.9 ms at B = 4096
+//   against a bound of 0.037 ms).  Its cycle counters (a NEWTON_CLOCK
+//   build, scripts/newton_ab.py) put 44% of an env's cycles in the
+//   Cholesky and triangular solves (36 columns, each a loop over 35 rows
+//   with % in its index arithmetic), 22% in the Hessian (21 entries per
+//   lane over ~100 listed rows) and 15% in staging (one 4-byte load at a
+//   time per thread); the envs of a block took 2 or 3 iterations alike,
+//   so their wait for the slowest cost 0.01%.
+// - Design: one env per block of WW = 4 warps (2 and 8 timed 19% and 18%
+//   slower at nv = 36), so the 43 KB region of the five-cube scene gives 5
+//   blocks, 20 warps, per SM (__launch_bounds__(128, 5): 96 registers, no
+//   spills).  The work is spread over the 128 threads across rows (jar,
+//   djar), units (the cone and row passes), dofs (J'g and the force: a warp
+//   sums 3 dofs at a time and runs their butterflies together), Hessian
+//   tiles of 3 x 3 entries (each J load serves 3 entries) and Cholesky
+//   entries, never inside one sum, so the bits are those of the
+//   single-warp kernel (the section below says how).  The Cholesky is
+//   right-looking with one block barrier per column: warp 0 takes each
+//   pivot and its column and the forward solve's step, the other warps the
+//   trailing update, two entries at a time; the back substitution runs on
+//   warp 0.  The line search's bracket points (0, 1, 2, ..., 2^bracket_len)
+//   are evaluated one per warp at once; its regula falsi steps on warp 0.
+//   The iterate's jar and M (x - x0) are kept from the cost at the trial
+//   point when the step is accepted, so a row pass does not recompute them.
+//   Staging keeps 16 loads in flight per thread.
+// - What bounds it now (cycle counters at nv = 36, 5 blocks per SM): the
+//   Cholesky's 37 barrier steps and the back substitution's 36 dependent
+//   divisions (~40% of an env's cycles together), then staging (~15%: an
+//   env's 4-byte column of the lanes layout costs a 32-byte sector from
+//   L2, 8x its bytes), the line search and the Hessian (~11% each):
+//   1.15 ms at B = 4096 on the H100 (PERF.md).
+// - The refusal stays: an nv and NE whose single env's region exceeds one
+//   block's shared memory (cudaErrorInvalidValue, a zero launch shape),
+//   the counterpart of the Pallas kernel's VMEM bound.
+
 // Input layout (as the Pallas kernel took it): J (nv*NE, B) row v*NE + r;
 // aref, D (NE, B); contact rows COMPONENT-major (row ns + j*K + k); aux rows
 // [floss (nf) | R_f (nf) | mu (K) | Dn (K) | scale]; us (CDIM*K, B);
@@ -111,6 +139,45 @@ constexpr size_t SMEM_LIMIT = 232448;   // dynamic shared memory of one block
 constexpr int CZ = 6;              // contact record: middle?, kz, wmu, uhat[3]
 constexpr float MINVAL = 1e-15f;
 constexpr unsigned FULL = 0xffffffffu;
+
+// The wide kernel's phases, for the cycle counts of a build with
+// -DNEWTON_CLOCK (scripts/newton_ab.py; the default build has none of it).
+enum Phase { PH_STAGE, PH_WARM, PH_ROWS, PH_HESS, PH_CHOL, PH_DIR, PH_LS, PH_ACCEPT, PH_FORCE,
+             PH_WAIT, PH_BACK, NPHASE };
+
+// Cycles per phase of one thread (clock64 deltas), written per env as
+// (NPHASE, B) int64 rows to the buffer gst_newton_clock sets.  Empty, and
+// every mark a no-op, without NEWTON_CLOCK.
+#ifdef NEWTON_CLOCK
+__device__ long long* clock_out;
+__device__ long long now() {
+#ifdef __CUDA_ARCH__
+    return clock64();
+#else
+    return 0;
+#endif
+}
+struct Clock {
+    long long t, acc[NPHASE];
+    __device__ Clock() : t(now()) {
+        for (int p = 0; p < NPHASE; ++p) acc[p] = 0;
+    }
+    __device__ void mark(int p) {
+        const long long n = now();
+        acc[p] += n - t;
+        t = n;
+    }
+    __device__ void write(int b, int B) const {
+        if (clock_out)
+            for (int p = 0; p < NPHASE; ++p) clock_out[(size_t)p * B + b] = acc[p];
+    }
+};
+#else
+struct Clock {
+    __device__ void mark(int) {}
+    __device__ void write(int, int) const {}
+};
+#endif
 
 __host__ __device__ constexpr int tri(int i, int j) { return i * (i + 1) / 2 + j; }
 __host__ __device__ constexpr int ntri(int n) { return n * (n + 1) / 2; }
@@ -203,20 +270,25 @@ struct Env {
     }
 };
 
-// The wide kernel's layout (nv given at run time): the instantiations'
-// arrays, then its dof-sized vectors and per-row weights (gr onwards);
-// `envs` per block set the padding that spreads the envs' regions over the
-// banks.  (The instantiations keep their own Layout and Env: sharing one
+// The wide kernel's layout (nv given at run time), one env per block: the
+// instantiations' inputs and per-row arrays, then the per-unit costs (uv
+// at x, un at a trial point), the triangle and its entry table, and the
+// dof-sized vectors.  jar/jn, xs/xn, dx/dxn and mx/mxn are pairs of
+// buffers for the iterate and the trial point, swapped when a step is
+// accepted.  (The instantiations keep their own Layout and Env: sharing one
 // with the wide kernel moved their register allocation and cost them 2-4%
 // on the card, scripts/newton_ab.py, PERF.md.)
 template <>
 struct Layout<0> {
-    int nv, NE, NEp, neq, nf, ns, K;
-    int J, aref, D, aux, us, qM, x0, warm, jar, djar, hw, rl, cz, A, dg, o, xs, xn, dn;
-    int gr, gc, gd, md, dx, rr, cd, cm, size;
+    int nv, NE, NEp, neq, nf, ns, K, nu;
+    int J, aref, D, aux, us, qM, x0, warm;          // the inputs
+    int jar, jn, djar, hw, rl, gr, cz, uv, un;      // per row, contact, unit
+    int A, tl, pv, dg, rr, yv, dd, dn, gd, gc, md;  // per entry, per dof
+    int xs, xn, dx, dxn, mx, mxn, ls, size;
 
-    __host__ __device__ Layout(int nv_, int NE_, int neq_, int nf_, int nl_, int K_, int envs)
-        : nv(nv_), NE(NE_), NEp(NE_ | 1), neq(neq_), nf(nf_), ns(neq_ + nf_ + nl_), K(K_) {
+    __host__ __device__ Layout(int nv_, int NE_, int neq_, int nf_, int nl_, int K_)
+        : nv(nv_), NE(NE_), NEp(NE_ | 1), neq(neq_), nf(nf_), ns(neq_ + nf_ + nl_), K(K_),
+          nu(K_ + neq_ + nf_ + nl_) {
         J = 0;
         aref = J + nv * NEp;
         D = aref + NE;
@@ -225,30 +297,38 @@ struct Layout<0> {
         qM = us + CDIM * K;
         x0 = qM + ntri(nv);
         warm = x0 + nv;
-        jar = warm + nv;
-        djar = jar + NE;
-        hw = djar + NE;
-        rl = hw + NE;
-        cz = rl + NE;
-        A = cz + CZ * K;
-        dg = A + ntri(nv);
-        o = dg + nv;
-        xs = o + 2 * nv + 1;
-        xn = xs + nv;
-        dn = xn + nv;
-        gr = dn + nv;                          // per row: its gradient weight
-        gc = gr + NE;                          // J'g
-        gd = gc + nv;                          // the gradient M (x - x0) + J'g
-        md = gd + nv;                          // M dx, then M d
-        dx = md + nv;                          // x - x0
-        rr = dx + nv;                          // the triangular solves' residual
-        cd = rr + nv;                          // cost_of's x - x0 ...
-        cm = cd + nv;                          // ... and M (x - x0)
-        size = ((cm + nv + 31) & ~31) + 32 / envs;
+        jar = warm + nv;                       // jar at x ...
+        jn = jar + NE;                         // ... and at the trial point
+        djar = jn + NE;
+        hw = djar + NE;                        // Hessian weight per row
+        rl = hw + NE;                          // ints: rows of nonzero weight
+        gr = rl + NE;                          // gradient weight per row
+        cz = gr + NE;                          // middle-zone record per contact
+        uv = cz + CZ * K;                      // cost per unit at x ...
+        un = uv + nu;                          // ... and at the trial point
+        A = un + nu;                           // M + H, then its factor
+        tl = A + ntri(nv);                     // ints: (i << 16) | l of entry t
+        pv = tl + ntri(nv);                    // the factor's diagonal
+        dg = pv + nv;                          // A's diagonal
+        rr = dg + nv;                          // forward solve: residual ...
+        yv = rr + nv;                          // ... and solution
+        dd = yv + nv;                          // H d = grad
+        dn = dd + nv;                          // the direction
+        gd = dn + nv;                          // the gradient M (x - x0) + J'g
+        gc = gd + nv;                          // J'g
+        md = gc + nv;                          // M dn
+        xs = md + nv;                          // x ...
+        xn = xs + nv;                          // ... and the trial point
+        dx = xn + nv;                          // x - x0 ...
+        dxn = dx + nv;
+        mx = dxn + nv;                         // ... and M (x - x0)
+        mxn = mx + nv;
+        ls = mxn + nv;                         // line-search points, 2 rounds; a flag
+        size = (ls + 2 * 32 + 1 + 31) & ~31;
     }
 };
 
-// The wide kernel's env: Env's accessors, jar_at over the run-time nv.
+// The wide kernel's env: Env's accessors.
 template <>
 struct Env<0> {
     float* s;
@@ -256,17 +336,10 @@ struct Env<0> {
 
     __device__ float at(int off, int r) const { return s[off + r]; }
     __device__ float Jv(int v, int r) const { return s[L.J + v * L.NEp + r]; }
-    __device__ float M(int i, int j) const { return s[L.qM + (i >= j ? tri(i, j) : tri(j, i))]; }
     __device__ float mu(int k) const { return s[L.aux + 2 * L.nf + k]; }
     __device__ float Dn(int k) const { return s[L.aux + 2 * L.nf + L.K + k]; }
     __device__ float uscale(int j, int k) const { return s[L.us + j * L.K + k]; }
     __device__ int crow(int j, int k) const { return L.ns + j * L.K + k; }
-
-    __device__ float jar_at(int r, const float* x) const {
-        float acc = -at(L.aref, r);
-        for (int v = 0; v < L.nv; ++v) acc += Jv(v, r) * x[v];
-        return acc;
-    }
 
     // as Env::scalar_row
     __device__ void scalar_row(int r, float jr, float& g, float& h, float& c) const {
@@ -383,28 +456,6 @@ __device__ float quad_form(const Env<NV>& e, int lane, const float* x, float* Md
     return q;
 }
 
-// The wide kernel's forms of mat_vec and quad_form: y, My, x, dx and Mdx
-// are vectors in shared memory (dof v written by lane v % 32), each entry
-// summed as above.
-__device__ void mat_vec_w(const Env<0>& e, int lane, const float* y, float* My) {
-    for (int i = lane; i < e.L.nv; i += WARP) {
-        float mi = 0.f;
-        for (int j = 0; j < e.L.nv; ++j) mi += e.M(i, j) * y[j];
-        My[i] = mi;
-    }
-    __syncwarp();
-}
-
-__device__ float quad_form_w(const Env<0>& e, int lane, const float* x, float* dx, float* Mdx) {
-    __syncwarp();         // earlier readers of dx and Mdx are done
-    for (int i = lane; i < e.L.nv; i += WARP) dx[i] = x[i] - e.at(e.L.x0, i);
-    __syncwarp();
-    mat_vec_w(e, lane, dx, Mdx);
-    float q = 0.f;
-    for (int i = 0; i < e.L.nv; ++i) q += dx[i] * Mdx[i];
-    return q;
-}
-
 // Solve L L' d = g for the Cholesky factor L in A, cooperatively: lane i
 // < NV owns row i; per column the owner divides by the pivot and
 // broadcasts, the other lanes update their residual.  The forward pass
@@ -465,25 +516,6 @@ __device__ float cost_of(const Env<NV>& e, int lane, const float* x) {
     });
     float Mdx[NV];
     const float q = quad_form(e, lane, x, Mdx);
-    return wsum(cs) + 0.5f * q;
-}
-
-// cost_of for the wide kernel: M (x - x0) through shared memory.
-__device__ float cost_of(const Env<0>& e, int lane, const float* x) {
-    float cs = 0.f;
-    for_units(e, lane, [&](int u) {
-            float g, h, c;
-            e.scalar_row(u, e.jar_at(u, x), g, h, c);
-            cs += c;
-    }, [&](int k) {
-            float jc[CDIM];
-#pragma unroll
-            for (int j = 0; j < CDIM; ++j) jc[j] = e.jar_at(e.crow(j, k), x);
-            Cone z;
-            z.eval(e, k, jc);
-            cs += z.cost(jc);
-    });
-    const float q = quad_form_w(e, lane, x, e.s + e.L.cd, e.s + e.L.cm);
     return wsum(cs) + 0.5f * q;
 }
 
@@ -885,260 +917,6 @@ __device__ void solve_env(const Env<NV>& e, int lane, int max_iters, int ls_len,
     }
 }
 
-// ---- the wide kernel (nv read at run time) ----
-// The same solve as solve_env, with every dof-sized vector and the
-// triangle in the env's shared region (Layout<0>): dof v is written by lane
-// v % 32, triangle entry t by lane t % 32, and every lane reads them.  Each
-// value is computed by the same operations in the same order as in the
-// instantiations.
-
-// sum over the lanes of J[v] . w for every dof v, times sign, into out[v]
-// (lane v % 32 writes it), from the per-row weights w in gr that this
-// lane's rows left there: `grouped` adds a contact's 4 rows up first (J'g
-// in the row pass), else one row at a time (the force at the solution).
-// A scalar row of weight 0 is skipped: adding a zero product to a sum
-// that starts at +0 changes no bit.
-__device__ void jt_weights(const Env<0>& e, int lane, bool grouped, float sign, float* out) {
-    const float* w = e.s + e.L.gr;
-    for (int v = 0; v < e.L.nv; ++v) {
-        float acc = 0.f;
-        for_units(e, lane, [&](int u) {
-                if (w[u] != 0.f) acc += e.Jv(v, u) * w[u];
-        }, [&](int k) {
-                if (grouped) {
-                    float t = 0.f;
-#pragma unroll
-                    for (int j = 0; j < CDIM; ++j) t += e.Jv(v, e.crow(j, k)) * w[e.crow(j, k)];
-                    acc += t;
-                } else {
-#pragma unroll
-                    for (int j = 0; j < CDIM; ++j) acc += e.Jv(v, e.crow(j, k)) * w[e.crow(j, k)];
-                }
-        });
-        acc = wsum(acc);
-        if (lane == v % WARP) out[v] = sign * acc;
-    }
-    __syncwarp();
-}
-
-// Row pass at x: the constraint cost summed over the warp, J'g into gcon.
-__device__ float assemble_rows_w(const Env<0>& e, int lane, const float* x, float* gcon) {
-    float* w = e.s + e.L.gr;
-    // a bottom-zone contact adds nothing (row_pass skips it): weights 0
-    for (int k = lane; k < e.L.K; k += WARP) {
-#pragma unroll
-        for (int j = 0; j < CDIM; ++j) w[e.crow(j, k)] = 0.f;
-    }
-    const float cl = row_pass(e, lane, x, [&](int u, float g) {
-            w[u] = g;
-    }, [&](int k, const Cone& z, const float* jc) {
-            float gc[CDIM];
-            z.grad(jc, gc);
-#pragma unroll
-            for (int j = 0; j < CDIM; ++j) w[e.crow(j, k)] = gc[j];
-    });
-    jt_weights(e, lane, true, 1.f, gcon);
-    return wsum(cl);
-}
-
-// A = M + H, entry t owned by lane t % 32 (row i, column l), each summed
-// as assemble_hessian sums it; the diagonal also into dg.
-__device__ void assemble_hessian_w(const Env<0>& e, int lane) {
-    float* s = e.s;
-    const Layout<0>& L = e.L;
-    const int* rows = reinterpret_cast<const int*>(s + L.rl);
-    const int n = weighted_rows(e, lane);
-    int i = 0, l = lane;                       // entry t = lane
-    while (l > i) l -= ++i;
-    for (int t = lane; t < ntri(L.nv); t += WARP) {
-        float a = 0.f;
-        for (int q = 0; q < n; ++q) {
-            const int r = rows[q];
-            const float wi = s[L.hw + r] * e.Jv(i, r);
-            a += wi * e.Jv(l, r);
-        }
-        for (int k = 0; k < L.K; ++k) {
-            const float* rec = s + L.cz + CZ * k;
-            if (rec[0] == 0.f) continue;
-            const float kz = rec[1], wmu = rec[2];
-            const float mu = e.mu(k);
-            float usj[CDIM], Ji[CDIM], Jl[CDIM];
-#pragma unroll
-            for (int j = 0; j < CDIM; ++j) {
-                usj[j] = e.uscale(j, k);
-                Ji[j] = e.Jv(i, e.crow(j, k));
-                Jl[j] = e.Jv(l, e.crow(j, k));
-            }
-            const float gu[CDIM] = {-usj[0], mu * rec[3] * usj[1],
-                                    mu * rec[4] * usj[2], mu * rec[5] * usj[3]};
-            const float ai = gu[0] * Ji[0] + gu[1] * Ji[1] + gu[2] * Ji[2] + gu[3] * Ji[3];
-            const float al = gu[0] * Jl[0] + gu[1] * Jl[1] + gu[2] * Jl[2] + gu[3] * Jl[3];
-            float Si[CDIM - 1], Sl[CDIM - 1], pi = 0.f, pl = 0.f;
-#pragma unroll
-            for (int q = 0; q < CDIM - 1; ++q) {
-                Si[q] = usj[q + 1] * Ji[q + 1];
-                Sl[q] = usj[q + 1] * Jl[q + 1];
-                pi += rec[3 + q] * Si[q];
-                pl += rec[3 + q] * Sl[q];
-            }
-            const float ss = Si[0] * Sl[0] + Si[1] * Sl[1] + Si[2] * Sl[2];
-            a += kz * ai * al + wmu * (ss - pi * pl);
-        }
-        a = e.M(i, l) + a;
-        s[L.A + t] = a;
-        if (i == l) s[L.dg + i] = a;
-        l += WARP;                             // entry t + 32
-        while (l > i) l -= ++i;
-    }
-    __syncwarp();
-}
-
-// Cholesky of A in place, right-looking as `cholesky`: per column j the
-// owner of (j, j) broadcasts the pivot, the owners of column j scale it,
-// and each lane updates its entries right of column j, each entry seeing
-// the same products in the same order.
-__device__ void cholesky_w(const Env<0>& e, int lane, float tiny) {
-    float* A = e.s + e.L.A;
-    const int nv = e.L.nv;
-    for (int j = 0; j < nv; ++j) {
-        const int owner = tri(j, j) % WARP;
-        float d = 0.f;
-        if (lane == owner) d = sqrtf(fmaxf(A[tri(j, j)], tiny));
-        d = __shfl_sync(FULL, d, owner);
-        const float inv = 1.f / d;
-        for (int i = j; i < nv; ++i) {
-            const int t = tri(i, j);
-            if (t % WARP == lane) A[t] = i == j ? d : A[t] * inv;
-        }
-        __syncwarp();
-        for (int i = j + 1; i < nv; ++i) {
-            const int t0 = tri(i, j + 1);
-            for (int t = t0 + (lane - t0 % WARP + WARP) % WARP; t <= tri(i, i); t += WARP)
-                A[t] -= A[tri(i, j)] * A[tri(t - tri(i, 0), j)];
-        }
-    }
-    __syncwarp();
-}
-
-// Solve L L' d = g as chol_solve does, row i's residual in rr kept by lane
-// i % 32; d in shared memory.
-__device__ void chol_solve_w(const Env<0>& e, int lane, const float* g, float* d) {
-    const float* A = e.s + e.L.A;
-    float* r = e.s + e.L.rr;
-    const int nv = e.L.nv;
-    for (int i = lane; i < nv; i += WARP) r[i] = g[i];
-    for (int k = 0; k < nv; ++k) {
-        float yk = lane == k % WARP ? r[k] / A[tri(k, k)] : 0.f;
-        yk = __shfl_sync(FULL, yk, k % WARP);
-        for (int i = lane; i < nv; i += WARP) {
-            if (i == k) r[i] = yk;
-            else if (i > k) r[i] -= A[tri(i, k)] * yk;
-        }
-    }
-    for (int k = nv - 1; k >= 0; --k) {
-        float dk = lane == k % WARP ? r[k] / A[tri(k, k)] : 0.f;
-        dk = __shfl_sync(FULL, dk, k % WARP);
-        if (lane == k % WARP) d[k] = dk;
-        for (int i = lane; i < k; i += WARP) r[i] -= A[tri(k, i)] * dk;
-    }
-    __syncwarp();
-}
-
-__device__ void solve_env_w(const Env<0>& e, int lane, int max_iters, int ls_len,
-                            int bracket_len, float tol)
-{
-    const Layout<0>& L = e.L;
-    const int nv = L.nv;
-    float* s = e.s;
-    const float scl = e.at(L.aux, 2 * L.nf + 2 * L.K);
-    const float tiny = sqrtf(1.17549435e-38f);   // sqrt(FLT_MIN)
-    float* x = s + L.xs;
-    float* x_new = s + L.xn;
-    float* dirn = s + L.dn;
-    float* gcon = s + L.gc;
-    float* grad = s + L.gd;
-    const bool warm = cost_of(e, lane, s + L.warm) < cost_of(e, lane, s + L.x0);
-    __syncwarp();
-    for (int v = lane; v < nv; v += WARP) x[v] = e.at(warm ? L.warm : L.x0, v);
-    __syncwarp();
-
-    int it = 0;
-    for (; it < max_iters; ) {
-        __syncwarp();
-        const float cost_con = assemble_rows_w(e, lane, x, gcon);
-        __syncwarp();
-        assemble_hessian_w(e, lane);
-        const float cost = cost_con + 0.5f * quad_form_w(e, lane, x, s + L.dx, grad);
-        __syncwarp();     // every lane has read M dx (in grad) for the cost
-        for (int v = lane; v < nv; v += WARP) grad[v] = grad[v] + gcon[v];
-        __syncwarp();
-        float gg = 0.f;
-        for (int i = 0; i < nv; ++i) gg += grad[i] * grad[i];
-
-        cholesky_w(e, lane, tiny);
-        chol_solve_w(e, lane, grad, dirn);          // H d = grad; the direction is -d
-        float slope = 0.f;
-        for (int i = 0; i < nv; ++i) slope += grad[i] * -dirn[i];
-        __syncwarp();
-        const bool descends = slope < 0.f;         // else Jacobi-scaled steepest descent
-        for (int v = lane; v < nv; v += WARP)
-            dirn[v] = descends ? -dirn[v] : -grad[v] / fmaxf(e.at(L.dg, v), MINVAL);
-        __syncwarp();
-
-        for_units(e, lane, [&](int r) {
-                float acc = 0.f;
-                for (int v = 0; v < nv; ++v) acc += e.Jv(v, r) * dirn[v];
-                s[L.djar + r] = acc;
-        }, [&](int k) {
-                for (int j = 0; j < CDIM; ++j) {
-                    float acc = 0.f;
-                    for (int v = 0; v < nv; ++v) acc += e.Jv(v, e.crow(j, k)) * dirn[v];
-                    s[L.djar + e.crow(j, k)] = acc;
-                }
-        });
-        const float* Md = s + L.md;
-        mat_vec_w(e, lane, dirn, s + L.md);
-        float c1 = 0.f, c2 = 0.f;
-        for (int i = 0; i < nv; ++i) {
-            c1 += (x[i] - e.at(L.x0, i)) * Md[i];
-            c2 += dirn[i] * Md[i];
-        }
-        const float alpha = line_search(e, lane, c1, c2, bracket_len, ls_len);
-
-        __syncwarp();
-        for (int v = lane; v < nv; v += WARP) x_new[v] = x[v] + alpha * dirn[v];
-        __syncwarp();
-        const float cost_new = cost_of(e, lane, x_new);
-        const bool done = (cost - cost_new) * scl < tol || sqrtf(gg) * scl < tol;
-        if (cost_new < cost) {
-            for (int v = lane; v < nv; v += WARP) x[v] = x_new[v];
-        }
-        __syncwarp();
-        ++it;
-        if (done) break;
-    }
-
-    // ---- constraint force at the solution, and the output ----
-    float* w = s + L.gr;
-    for_units(e, lane, [&](int u) {
-            float g, h, c;
-            e.scalar_row(u, e.jar_at(u, x), g, h, c);
-            w[u] = g;
-    }, [&](int k) {
-            float jc[CDIM], gc[CDIM];
-#pragma unroll
-            for (int j = 0; j < CDIM; ++j) jc[j] = e.jar_at(e.crow(j, k), x);
-            Cone z;
-            z.eval(e, k, jc);
-            z.grad(jc, gc);
-#pragma unroll
-            for (int j = 0; j < CDIM; ++j) w[e.crow(j, k)] = gc[j];
-    });
-    jt_weights(e, lane, false, -1.f, s + L.o + nv);
-    for (int v = lane; v < nv; v += WARP) s[L.o + v] = x[v];
-    if (lane == 0) s[L.o + 2 * nv] = (float)it;
-}
-
 struct Inputs {
     const float* __restrict__ J;
     const float* __restrict__ aref;
@@ -1230,31 +1008,638 @@ __global__ void __launch_bounds__(ENVS * WARP, warps_per_sm(NV) / ENVS) newton_s
     }
 }
 
-// The wide kernel: any nv, E = blockDim.x / 32 envs per block (4, 2 or 1:
-// wide_envs).
-__global__ void __launch_bounds__(ENVS * WARP) newton_solve_wide(
+// ---- the wide kernel (nv read at run time): one env per block ----
+// The same solve as solve_env, spread over the WW warps of a block.  The
+// work parallelises across rows, units, dofs and triangle entries, never
+// inside one sum: every sum keeps the order in which the single-warp
+// kernel took it (a row's jar over v = 0..nv-1; each of the 32 "lanes'"
+// partial sums over its units in for_units' partition, then the 5-step
+// butterfly; each Hessian entry over the weighted rows in list order,
+// then the middle-zone contacts in k order; each Cholesky entry's updates
+// in column order), so an nv the instantiations also take gives their
+// bits.  Steps that need every row, unit or entry of the step before are
+// separated by a block barrier.  The short ordered reductions run on one
+// warp where one warp decides (the cost, gg and the stop test, the slope,
+// the regula falsi steps; warp 0, which hands on what the others need
+// through shared memory) and alike in every warp where every warp needs
+// the bits (the warmstart pick's costs, c1 and c2).
+
+constexpr int WW = 4;                                  // warps per block (one env)
+constexpr int WT = WW * WARP;                          // threads per block
+constexpr int HT = 3;                                  // Hessian tile: HT x HT entries a thread
+constexpr int JG = 3;                                  // dofs a warp sums at a time (J'g, force)
+constexpr int TS = WT - WARP;                          // threads of the trailing Cholesky update
+constexpr int LOADS = 16;                              // staging loads in flight per thread
+// resident blocks per SM that __launch_bounds__ holds the registers to
+// (96 a thread): 5 at nv = 36, NE = 170, where an env's region is 43,264 B
+constexpr int WIDE_BLOCKS = 5;
+
+// out[r] = (neg ? -neg[r] : 0) + sum_v J[v][r] y[v], in v order, for every
+// row r; rows r and r + WT on one thread, two chains at a time.
+__device__ void rows_dot(const Env<0>& e, const float* y, const float* neg, float* out) {
+    const float* J = e.s + e.L.J;
+    const int NE = e.L.NE, NEp = e.L.NEp, nv = e.L.nv;
+    for (int r = threadIdx.x; r < NE; r += 2 * WT) {
+        const int r2 = r + WT < NE ? r + WT : r;
+        float a = neg ? -neg[r] : 0.f, b = neg ? -neg[r2] : 0.f;
+#pragma unroll 4
+        for (int v = 0; v < nv; ++v) {
+            const float yv = y[v];
+            a += J[v * NEp + r] * yv;
+            b += J[v * NEp + r2] * yv;
+        }
+        out[r] = a;
+        if (r2 != r) out[r2] = b;
+    }
+}
+
+// out[i] = sum_j M[i][j] y[j] in j order (mat_vec's sum) for rows i = t,
+// t + WT, ...: M's lower triangle along row i up to the diagonal, then
+// down column i.
+__device__ void mat_rows(const Env<0>& e, int t, const float* y, float* out) {
+    const float* M = e.s + e.L.qM;
+    const int nv = e.L.nv;
+    for (int i = t; i < nv; i += WT) {
+        const float* Mi = M + tri(i, 0);
+        float mi = 0.f;
+#pragma unroll 4
+        for (int j = 0; j <= i; ++j) mi += Mi[j] * y[j];
+        int q = tri(i + 1, i);                 // M[i][j] for j > i: qM[tri(j, i)]
+#pragma unroll 4
+        for (int j = i + 1; j < nv; q += ++j) mi += M[q] * y[j];
+        out[i] = mi;
+    }
+}
+
+// sum_i a[i] b[i], in i order
+__device__ float dot_dofs(const float* a, const float* b, int n) {
+    float q = 0.f;
+#pragma unroll 4
+    for (int i = 0; i < n; ++i) q += a[i] * b[i];
+    return q;
+}
+
+enum UnitPass { U_COST, U_ROWS, U_FORCE };
+
+// The units (contact u < K, else scalar row u - K) at the jar values at
+// offset jar, one per thread: U_COST their costs into uv; U_ROWS also the
+// row pass's Hessian weights, contact records and gradient weights (gr;
+// a bottom-zone contact, which has no force, weight 0); U_FORCE the
+// gradient weights of every unit only.
+template <int MODE>
+__device__ void unit_pass(const Env<0>& e, int jar, float* uv) {
+    float* s = e.s;
+    const Layout<0>& L = e.L;
+    float* w = s + L.gr;
+    for (int u = threadIdx.x; u < L.nu; u += WT) {
+        if (u < L.K) {
+            float jc[CDIM];
+#pragma unroll
+            for (int j = 0; j < CDIM; ++j) jc[j] = s[jar + e.crow(j, u)];
+            Cone z;
+            z.eval(e, u, jc);
+            if (MODE != U_FORCE) uv[u] = z.cost(jc);
+            if (MODE == U_ROWS) {
+#pragma unroll
+                for (int j = 0; j < CDIM; ++j) s[L.hw + e.crow(j, u)] = z.top ? z.Dc[j] : 0.f;
+                float* rec = s + L.cz + CZ * u;
+                rec[0] = z.middle ? 1.f : 0.f;
+                rec[1] = z.kz;
+                rec[2] = z.middle ? z.kz * z.w * z.mu / z.T : 0.f;
+#pragma unroll
+                for (int t = 0; t < CDIM - 1; ++t) rec[3 + t] = z.uhat[t];
+            }
+            if (MODE != U_COST) {
+                float gc[CDIM];
+                z.grad(jc, gc);
+                const bool force = MODE == U_FORCE || z.top || z.middle;
+#pragma unroll
+                for (int j = 0; j < CDIM; ++j) w[e.crow(j, u)] = force ? gc[j] : 0.f;
+            }
+        } else {
+            const int r = u - L.K;
+            float g, h, c;
+            e.scalar_row(r, s[jar + r], g, h, c);
+            if (MODE != U_FORCE) uv[u] = c;
+            if (MODE == U_ROWS) s[L.hw + r] = h;
+            if (MODE != U_COST) w[r] = g;
+        }
+    }
+}
+
+// The units' costs in uv summed as cost_of sums them: each lane its units
+// in for_units order, then the butterfly (the same bits in every thread).
+__device__ float unit_sum(const Env<0>& e, int lane, const float* uv) {
+    float acc = 0.f;
+    for_units(e, lane, [&](int r) { acc += uv[e.L.K + r]; }, [&](int k) { acc += uv[k]; });
+    return wsum(acc);
+}
+
+// sign * sum over the lanes of J[v] . w for every dof v into out[v *
+// stride], from the per-row weights w in gr: warp g % WW takes dofs JG g
+// to JG g + JG - 1, each lane sums its units (for_units) for them, and the
+// warp runs their butterflies together.  GROUPED adds a contact's 4 rows
+// up first (J'g in the row pass), else one row at a time (the force at
+// the solution).  A scalar row of weight 0 is skipped: adding a zero
+// product to a sum that starts at +0 changes no bit.
+template <bool GROUPED>
+__device__ void jt_weights(const Env<0>& e, int warp, int lane, float sign, float* out,
+                           size_t stride) {
+    const float* w = e.s + e.L.gr;
+    const int nv = e.L.nv;
+    for (int v0 = warp * JG; v0 < nv; v0 += WW * JG) {
+        int vs[JG];
+        float acc[JG];
+#pragma unroll
+        for (int g = 0; g < JG; ++g) {
+            vs[g] = v0 + g < nv ? v0 + g : nv - 1;
+            acc[g] = 0.f;
+        }
+        for_units(e, lane, [&](int u) {
+                const float wu = w[u];
+                if (wu != 0.f) {
+#pragma unroll
+                    for (int g = 0; g < JG; ++g) acc[g] += e.Jv(vs[g], u) * wu;
+                }
+        }, [&](int k) {
+                int rk[CDIM];
+                float wk[CDIM];
+#pragma unroll
+                for (int j = 0; j < CDIM; ++j) {
+                    rk[j] = e.crow(j, k);
+                    wk[j] = w[rk[j]];
+                }
+#pragma unroll
+                for (int g = 0; g < JG; ++g) {
+                    if (GROUPED) {
+                        float t = 0.f;
+#pragma unroll
+                        for (int j = 0; j < CDIM; ++j) t += e.Jv(vs[g], rk[j]) * wk[j];
+                        acc[g] += t;
+                    } else {
+#pragma unroll
+                        for (int j = 0; j < CDIM; ++j) acc[g] += e.Jv(vs[g], rk[j]) * wk[j];
+                    }
+                }
+        });
+#pragma unroll
+        for (int m = WARP / 2; m > 0; m >>= 1) {
+#pragma unroll
+            for (int g = 0; g < JG; ++g) acc[g] += __shfl_xor_sync(FULL, acc[g], m);
+        }
+        if (lane == 0) {
+#pragma unroll
+            for (int g = 0; g < JG; ++g)
+                if (v0 + g < nv) out[(size_t)(v0 + g) * stride] = sign * acc[g];
+        }
+    }
+}
+
+// The rows of nonzero Hessian weight, ascending, into rl (weighted_rows):
+// every warp counts them by ballot, warp 0 writes the list.
+__device__ int weighted_rows_w(const Env<0>& e, int warp, int lane) {
+    const float* hw = e.s + e.L.hw;
+    int* rows = reinterpret_cast<int*>(e.s + e.L.rl);
+    int n = 0;
+    for (int r0 = 0; r0 < e.L.NE; r0 += WARP) {
+        const int r = r0 + lane;
+        const bool nz = r < e.L.NE && hw[r] != 0.f;
+        const unsigned bal = __ballot_sync(FULL, nz);
+        if (warp == 0 && nz) rows[n + __popc(bal & ((1u << lane) - 1u))] = r;
+        n += __popc(bal);
+    }
+    return n;
+}
+
+// A = M + H over the n listed rows, each entry summed as assemble_hessian
+// sums it, the diagonal also into dg.  The triangle is cut into HT x HT
+// tiles of entries (rows i and columns l in blocks of HT), one tile per
+// thread, so that each J[i][r] and J[l][r] a thread loads serves HT
+// entries.
+__device__ void assemble_hessian_w(const Env<0>& e, int n) {
+    float* s = e.s;
+    const Layout<0>& L = e.L;
+    const int nv = L.nv, nb = (nv + HT - 1) / HT;
+    const int* rows = reinterpret_cast<const int*>(s + L.rl);
+    for (int tile = threadIdx.x; tile < ntri(nb); tile += WT) {
+        int bi = 0;
+        while (tri(bi + 1, 0) <= tile) ++bi;
+        const int bl = tile - tri(bi, 0);
+        int ii[HT], ll[HT];                    // the tile's rows and columns, clamped
+#pragma unroll
+        for (int a = 0; a < HT; ++a) {
+            ii[a] = bi * HT + a < nv ? bi * HT + a : nv - 1;
+            ll[a] = bl * HT + a < nv ? bl * HT + a : nv - 1;
+        }
+        float acc[HT][HT];
+#pragma unroll
+        for (int a = 0; a < HT; ++a)
+#pragma unroll
+            for (int b = 0; b < HT; ++b) acc[a][b] = 0.f;
+        // diagonal weights: h of a scalar row, Dc of a top-zone contact row
+#pragma unroll 2
+        for (int q = 0; q < n; ++q) {
+            const int r = rows[q];
+            const float wr = s[L.hw + r];
+            float wi[HT], Jl[HT];
+#pragma unroll
+            for (int a = 0; a < HT; ++a) {
+                wi[a] = wr * e.Jv(ii[a], r);
+                Jl[a] = e.Jv(ll[a], r);
+            }
+#pragma unroll
+            for (int a = 0; a < HT; ++a)
+#pragma unroll
+                for (int b = 0; b < HT; ++b) acc[a][b] += wi[a] * Jl[b];
+        }
+        // middle zone: kz a a' + wmu (SJt'SJt - proj proj')
+        for (int k = 0; k < L.K; ++k) {
+            const float* rec = s + L.cz + CZ * k;
+            if (rec[0] == 0.f) continue;
+            const float kz = rec[1], wmu = rec[2];
+            const float mu = e.mu(k);
+            float usj[CDIM];
+#pragma unroll
+            for (int j = 0; j < CDIM; ++j) usj[j] = e.uscale(j, k);
+            const float gu[CDIM] = {-usj[0], mu * rec[3] * usj[1],
+                                    mu * rec[4] * usj[2], mu * rec[5] * usj[3]};
+            float ai[HT], al[HT], Si[HT][CDIM - 1], Sl[HT][CDIM - 1], pi[HT], pl[HT];
+#pragma unroll
+            for (int a = 0; a < HT; ++a) {
+                float Ji[CDIM], Jl[CDIM];
+#pragma unroll
+                for (int j = 0; j < CDIM; ++j) {
+                    Ji[j] = e.Jv(ii[a], e.crow(j, k));
+                    Jl[j] = e.Jv(ll[a], e.crow(j, k));
+                }
+                ai[a] = gu[0] * Ji[0] + gu[1] * Ji[1] + gu[2] * Ji[2] + gu[3] * Ji[3];
+                al[a] = gu[0] * Jl[0] + gu[1] * Jl[1] + gu[2] * Jl[2] + gu[3] * Jl[3];
+                pi[a] = 0.f;
+                pl[a] = 0.f;
+#pragma unroll
+                for (int q = 0; q < CDIM - 1; ++q) {
+                    Si[a][q] = usj[q + 1] * Ji[q + 1];
+                    Sl[a][q] = usj[q + 1] * Jl[q + 1];
+                    pi[a] += rec[3 + q] * Si[a][q];
+                    pl[a] += rec[3 + q] * Sl[a][q];
+                }
+            }
+#pragma unroll
+            for (int a = 0; a < HT; ++a)
+#pragma unroll
+                for (int b = 0; b < HT; ++b) {
+                    const float ss = Si[a][0] * Sl[b][0] + Si[a][1] * Sl[b][1]
+                                     + Si[a][2] * Sl[b][2];
+                    acc[a][b] += kz * ai[a] * al[b] + wmu * (ss - pi[a] * pl[b]);
+                }
+        }
+#pragma unroll
+        for (int a = 0; a < HT; ++a)
+#pragma unroll
+            for (int b = 0; b < HT; ++b) {
+                const int i = bi * HT + a, l = bl * HT + b;
+                if (i < nv && l <= i) {
+                    const float v = s[L.qM + tri(i, l)] + acc[a][b];
+                    s[L.A + tri(i, l)] = v;
+                    if (i == l) s[L.dg + i] = v;
+                }
+            }
+    }
+}
+
+// Cholesky of A, right-looking as `cholesky`, with the forward solve L y =
+// g folded in, one block barrier per column.  At step j (columns 0 to j
+// final) warp 0 takes the pivot of column j + 1 (A[j+1][j+1] less
+// L[j+1][j]^2, as its owner would), updates column j + 1 by column j and
+// scales it, then takes the forward solve's step j (as chol_solve's
+// forward pass: row i's residual in rr by lane (i - j) % 32); the other
+// warps' threads subtract column j's products from the entries right of
+// column j + 1, two entries at a time (entry t on thread WARP + t % TS,
+// its row and column from the entry table tl).  Each entry sees the same
+// products subtracted in the same order as in a serial left-looking
+// Cholesky, so the factor has the same bits.  The pivots go to pv; A's
+// diagonal keeps its value from before the last update.
+__device__ void cholesky_w(const Env<0>& e, const float* g, float tiny) {
+    float* s = e.s;
+    const Layout<0>& L = e.L;
+    float* A = s + L.A;
+    const int* tl = reinterpret_cast<const int*>(s + L.tl);
+    float* pv = s + L.pv;
+    float* r = s + L.rr;
+    float* y = s + L.yv;
+    const int nv = L.nv, nt = ntri(nv), warp = threadIdx.x / WARP, lane = threadIdx.x % WARP;
+    const int own = threadIdx.x - WARP;      // the trailing update's thread index
+    if (warp == 0) {
+        const float d = sqrtf(fmaxf(A[0], tiny));
+        const float inv = 1.f / d;
+        for (int i = lane; i < nv; i += WARP) {
+            if (i > 0) A[tri(i, 0)] = A[tri(i, 0)] * inv;
+            else pv[0] = d;
+            r[i] = g[i];
+        }
+    }
+    __syncthreads();
+    for (int j = 0; j < nv; ++j) {
+        if (warp == 0) {
+            if (j + 1 < nv) {
+                const float lj = A[tri(j + 1, j)];
+                const float d = sqrtf(fmaxf(A[tri(j + 1, j + 1)] - lj * lj, tiny));
+                const float inv = 1.f / d;
+                for (int i = j + 2 + lane; i < nv; i += WARP) {
+                    const int t = tri(i, j + 1);
+                    A[t] = (A[t] - A[tri(i, j)] * lj) * inv;
+                }
+                if (lane == 0) pv[j + 1] = d;
+            }
+            const float yj = r[j] / pv[j];
+            for (int i = j + lane; i < nv; i += WARP) {
+                if (i == j) y[j] = yj;
+                else r[i] -= A[tri(i, j)] * yj;
+            }
+        } else {
+            const int t0 = tri(j + 2, 0);
+            for (int t = t0 + ((own - t0) % TS + TS) % TS; t < nt; t += 2 * TS) {
+                const int t2 = t + TS < nt ? t + TS : t;
+                const int il = tl[t], i = il >> 16, l = il & 0xffff;
+                const int il2 = tl[t2], i2 = il2 >> 16, l2 = il2 & 0xffff;
+                const float a = A[t], p = A[tri(i, j)] * A[tri(l, j)];
+                const float a2 = A[t2], p2 = A[tri(i2, j)] * A[tri(l2, j)];
+                if (l > j + 1) A[t] = a - p;
+                if (t2 != t && l2 > j + 1) A[t2] = a2 - p2;
+            }
+        }
+        __syncthreads();
+    }
+}
+
+// Staging: every input of env b (column b of its (rows, B) array) into
+// its region, and the triangle's entry table.  The inputs' rows are one
+// index space of N elements: J's row q = v NE + r lands at v NEp + r (its
+// rows padded), the other inputs' rows one after another from aref on (the
+// region holds them in the order of Inputs).  Each thread has LOADS
+// independent loads in flight, across the inputs, before their stores:
+// 4 rounds per thread at nv = 36 (7,463 floats).  (A TMA
+// box's inner dimension is at least 16 B, and an env's column is 4 B wide
+// in the lanes layout (rows, B) the kernel takes, so the copy is by
+// thread; 4-byte cp.async copies timed 1% slower at nv = 36.)
+__device__ void stage_env(float* smem, const Inputs& in, const Layout<0>& L, int b, int B) {
+    const int nv = L.nv, NE = L.NE, nJ = nv * NE;
+    const float* const src[7] = {in.aref, in.D, in.aux, in.us, in.qM, in.x0, in.warm};
+    const int rows[7] = {NE, NE, 2 * L.nf + 2 * L.K + 1, CDIM * L.K, ntri(nv), nv, nv};
+    int N = nJ;
+#pragma unroll
+    for (int k = 0; k < 7; ++k) N += rows[k];
+    int q = threadIdx.x, v = q / NE, rr = q - v * NE;     // element q of J: dof v, row rr
+    for (; q < N; q += LOADS * WT) {
+        int di[LOADS];
+        float val[LOADS];
+#pragma unroll
+        for (int u = 0; u < LOADS; ++u) {
+            const int qu = q + u * WT;
+            const float* from = nullptr;
+            di[u] = -1;
+            if (qu < nJ) {
+                di[u] = v * L.NEp + rr;
+                from = in.J + (size_t)qu * B;
+            } else if (qu < N) {
+                int o = qu - nJ;
+                di[u] = L.aref + o;
+                from = src[0];
+#pragma unroll
+                for (int k = 0; k < 6; ++k) {
+                    if (o < rows[k]) break;
+                    o -= rows[k];
+                    from = src[k + 1];
+                }
+                from += (size_t)o * B;
+            }
+            rr += WT;
+            while (rr >= NE) {
+                rr -= NE;
+                ++v;
+            }
+            val[u] = di[u] >= 0 ? from[b] : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < LOADS; ++u)
+            if (di[u] >= 0) smem[di[u]] = val[u];
+    }
+    int* tl = reinterpret_cast<int*>(smem + L.tl);
+    for (int i = threadIdx.x / WARP; i < nv; i += WW)
+        for (int l = threadIdx.x % WARP; l <= i; l += WARP) tl[tri(i, l)] = (i << 16) | l;
+}
+
+__device__ void swap_off(int& a, int& b) {
+    const int t = a;
+    a = b;
+    b = t;
+}
+
+// The solve of the block's env; writes qacc, qfrc_constraint and niter of
+// env b to out.
+__device__ void solve_env_w(Env<0> e, float* __restrict__ out, int b, int B, int max_iters,
+                            int ls_len, int bracket_len, float tol, Clock& ck) {
+    float* s = e.s;
+    Layout<0>& L = e.L;
+    const int nv = L.nv, tid = threadIdx.x, warp = tid / WARP, lane = tid % WARP;
+    const float scl = s[L.aux + 2 * L.nf + 2 * L.K];
+    const float tiny = sqrtf(1.17549435e-38f);   // sqrt(FLT_MIN)
+
+    // ---- warmstart pick: the warmstart where it costs less than x0 ----
+    rows_dot(e, s + L.warm, s + L.aref, s + L.jar);
+    rows_dot(e, s + L.x0, s + L.aref, s + L.jn);
+    for (int v = tid; v < nv; v += WT) {
+        s[L.dx + v] = s[L.warm + v] - s[L.x0 + v];
+        s[L.dxn + v] = s[L.x0 + v] - s[L.x0 + v];
+    }
+    __syncthreads();
+    unit_pass<U_COST>(e, L.jar, s + L.uv);
+    unit_pass<U_COST>(e, L.jn, s + L.un);
+    mat_rows(e, WT - 1 - tid, s + L.dx, s + L.mx);
+    mat_rows(e, WT - 1 - tid, s + L.dxn, s + L.mxn);
+    __syncthreads();
+    const float qw = dot_dofs(s + L.dx, s + L.mx, nv);
+    const float q0 = dot_dofs(s + L.dxn, s + L.mxn, nv);
+    const bool warm = unit_sum(e, lane, s + L.uv) + 0.5f * qw
+                      < unit_sum(e, lane, s + L.un) + 0.5f * q0;
+    float qx = warm ? qw : q0;                 // (x - x0)' M (x - x0)
+    if (!warm) {
+        swap_off(L.jar, L.jn);
+        swap_off(L.dx, L.dxn);
+        swap_off(L.mx, L.mxn);
+    }
+    for (int v = tid; v < nv; v += WT) s[L.xs + v] = s[(warm ? L.warm : L.x0) + v];
+    __syncthreads();                           // the costs' units are read
+    ck.mark(PH_WARM);
+
+    int it = 0;
+    for (; it < max_iters; ) {
+        // ---- the row pass at x (jar holds its jar), J'g, the Hessian ----
+        unit_pass<U_ROWS>(e, L.jar, s + L.uv);
+        __syncthreads();
+        // the cost, gg and the decisions on them are warp 0's
+        const float cost_con = warp == 0 ? unit_sum(e, lane, s + L.uv) : 0.f;
+        const int n = weighted_rows_w(e, warp, lane);
+        jt_weights<true>(e, warp, lane, 1.f, s + L.gc, 1);
+        __syncthreads();
+        ck.mark(PH_ROWS);
+        assemble_hessian_w(e, n);
+        for (int v = tid; v < nv; v += WT) s[L.gd + v] = s[L.mx + v] + s[L.gc + v];
+        __syncthreads();
+        ck.mark(PH_HESS);
+
+        // ---- cost, gradient, Newton direction ----
+        const float* grad = s + L.gd;
+        const float cost = cost_con + 0.5f * qx;
+        const float gg = warp == 0 ? dot_dofs(grad, grad, nv) : 0.f;
+        cholesky_w(e, grad, tiny);
+        ck.mark(PH_CHOL);
+        if (warp == 0) {
+            // back substitution L' d = y, as chol_solve's backward pass:
+            // row i's residual (in yv) kept by lane i % 32; every lane
+            // divides for d[k] (one lane dividing and a shuffle, or the
+            // residuals in registers, timed slower on the card)
+            const float* A = s + L.A;
+            float* y = s + L.yv;
+            for (int k = nv - 1; k >= 0; --k) {
+                const float dk = y[k] / s[L.pv + k];
+                if (lane == 0) s[L.dd + k] = dk;
+                for (int i = lane; i < k; i += WARP) y[i] -= A[tri(k, i)] * dk;
+                __syncwarp();
+            }
+            float slope = 0.f;
+            for (int i = 0; i < nv; ++i) slope += grad[i] * -s[L.dd + i];
+            const bool descends = slope < 0.f;     // else Jacobi-scaled steepest descent
+            for (int v = lane; v < nv; v += WARP)
+                s[L.dn + v] = descends ? -s[L.dd + v] : -grad[v] / fmaxf(s[L.dg + v], MINVAL);
+        }
+        __syncthreads();
+        ck.mark(PH_BACK);
+
+        // ---- djar and M d, c1 = dn' M (x - x0), c2 = dn' M dn ----
+        const float* dirn = s + L.dn;
+        rows_dot(e, dirn, nullptr, s + L.djar);
+        mat_rows(e, WT - 1 - tid, dirn, s + L.md);
+        __syncthreads();
+        float c1 = 0.f, c2 = 0.f;
+#pragma unroll 4
+        for (int i = 0; i < nv; ++i) {
+            c1 += (s[L.xs + i] - s[L.x0 + i]) * s[L.md + i];
+            c2 += dirn[i] * s[L.md + i];
+        }
+        ck.mark(PH_DIR);
+
+        // ---- exact line search on the directional derivative ----
+        // line_search's evaluations at 0 and at 1, 2, ..., 2^bracket_len
+        // (every point its bracket can reach; the points it does not reach
+        // are not read), one per warp per round, then its regula falsi
+        // steps on warp 0, which writes x_new
+        const int npts = bracket_len + 2;
+        bool ok = false;
+        int m = 0;                             // hi = 2^m
+        float hi = 1.f, dhi = 0.f, dlo = 0.f;
+        for (int p0 = 0, round = 0; p0 < npts; p0 += WW, ++round) {
+            float* pts = s + L.ls + (round & 1) * WW;
+            const int p = p0 + warp;
+            if (p < npts) {
+                float a = 0.f;
+                if (p > 0) {
+                    a = 1.f;
+                    for (int i = 1; i < p; ++i) a *= 2.f;
+                }
+                const float d1 = d1_of(e, lane, a, c1, c2);
+                if (lane == 0) pts[warp] = d1;
+            }
+            __syncthreads();
+            for (int q = p0; warp == 0 && q < npts && q < p0 + WW; ++q) {
+                const float d1 = pts[q - p0];
+                if (q == 0) {
+                    dlo = d1;
+                } else if (q - 1 == m) {       // the point hi
+                    dhi = d1;
+                    if (m < bracket_len && !ok) {
+                        if (d1 > 0.f) {
+                            ok = true;
+                        } else {
+                            ++m;
+                            hi *= 2.f;
+                        }
+                    }
+                }
+            }
+        }
+        if (warp == 0) {
+            float lo = 0.f;
+            const float dlo0 = dlo;
+            for (int i = 0; i < ls_len; ++i) {
+                const float a = fminf(fmaxf(falsi(lo, hi, dlo, dhi), lo + 1e-14f), hi - 1e-14f);
+                const float da = d1_of(e, lane, a, c1, c2);
+                if (da < 0.f) {
+                    lo = a;
+                    dlo = da;
+                    dhi = 0.5f * dhi;
+                } else {
+                    dlo = 0.5f * dlo;
+                    hi = a;
+                    dhi = da;
+                }
+            }
+            const float alpha = dlo0 >= 0.f ? 0.f : falsi(lo, hi, dlo, dhi);
+            for (int v = lane; v < nv; v += WARP) s[L.xn + v] = s[L.xs + v] + alpha * dirn[v];
+        }
+        __syncthreads();
+        ck.mark(PH_LS);
+
+        // ---- the cost at x_new; accept, count, stop test ----
+        rows_dot(e, s + L.xn, s + L.aref, s + L.jn);
+        for (int v = tid; v < nv; v += WT) s[L.dxn + v] = s[L.xn + v] - s[L.x0 + v];
+        __syncthreads();                       // jar and x - x0 at x_new are in jn, dxn
+        unit_pass<U_COST>(e, L.jn, s + L.un);
+        mat_rows(e, WT - 1 - tid, s + L.dxn, s + L.mxn);
+        __syncthreads();                       // the units' costs at x_new are in un
+        int* flag = reinterpret_cast<int*>(s + L.ls + 2 * 32);
+        if (warp == 0) {
+            const float qn = dot_dofs(s + L.dxn, s + L.mxn, nv);
+            const float cost_new = unit_sum(e, lane, s + L.un) + 0.5f * qn;
+            const bool done = (cost - cost_new) * scl < tol || sqrtf(gg) * scl < tol;
+            const bool take = cost_new < cost;
+            if (take) qx = qn;
+            if (lane == 0) *flag = (int)done | (int)take << 1;
+        }
+        __syncthreads();
+        const int f = *flag;
+        if (f & 2) {                           // accepted: x_new is the iterate
+            swap_off(L.xs, L.xn);
+            swap_off(L.jar, L.jn);
+            swap_off(L.dx, L.dxn);
+            swap_off(L.mx, L.mxn);
+        }
+        ck.mark(PH_ACCEPT);
+        ++it;
+        if (f & 1) break;
+    }
+
+    // ---- constraint force at the solution, and the output ----
+    unit_pass<U_FORCE>(e, L.jar, nullptr);
+    __syncthreads();
+    jt_weights<false>(e, warp, lane, -1.f, out + (size_t)nv * B + b, B);
+    for (int v = tid; v < nv; v += WT) out[(size_t)v * B + b] = s[L.xs + v];
+    if (tid == 0) out[(size_t)2 * nv * B + b] = (float)it;
+    ck.mark(PH_FORCE);
+}
+
+// The wide kernel: any nv, one env per block of WT threads.
+__global__ void __launch_bounds__(WT, WIDE_BLOCKS) newton_solve_wide(
     Inputs in, float* __restrict__ out, Layout<0> L, int B,
     int max_iters, int ls_len, int bracket_len, float tol)
 {
     extern __shared__ float smem[];
-    const int E = blockDim.x / WARP;
-    const int b0 = blockIdx.x * E;
-    const int nv = L.nv;
-    stage_inputs(smem, E, in, L, nv, b0, B);
+    Clock ck;
+    stage_env(smem, in, L, blockIdx.x, B);
     __syncthreads();
-
-    const int w = threadIdx.x / WARP;
-    if (b0 + w < B) {
-        Env<0> e{smem + w * L.size, L};
-        solve_env_w(e, threadIdx.x % WARP, max_iters, ls_len, bracket_len, tol);
-    }
-    __syncthreads();
-
-    // output row r of (2 nv + 1): qacc, qfrc_constraint, niter
-    for (int q = threadIdx.x; q < (2 * nv + 1) * E; q += blockDim.x) {
-        const int r = q / E, e = q - r * E;
-        if (b0 + e < B) out[(size_t)r * B + b0 + e] = smem[e * L.size + L.o + r];
-    }
+    ck.mark(PH_STAGE);
+    solve_env_w(Env<0>{smem, L}, out, blockIdx.x, B, max_iters, ls_len, bracket_len, tol, ck);
+    if (threadIdx.x == 0) ck.write(blockIdx.x, B);
 }
 
 // The instantiations, ascending; a problem of nv up to the largest runs on
@@ -1276,21 +1661,15 @@ int with_nv(int nv, F f) {
     return err;
 }
 
-// The wide kernel's envs per block: the most of 4, 2, 1 whose regions fit
-// one block's shared memory; 0 where one env's region does not.
-int wide_envs(int nv, int NE, int neq, int nf, int nl, int K) {
-    const int choices[] = {4, 2, 1};
-    for (int E : choices) {
-        const Layout<0> L(nv, NE, neq, nf, nl, K, E);
-        if ((size_t)E * L.size * sizeof(float) <= SMEM_LIMIT) return E;
-    }
-    return 0;
+// Whether the wide kernel's one-env region fits one block's shared memory.
+bool wide_fits(int nv, int NE, int neq, int nf, int nl, int K) {
+    return (size_t)Layout<0>(nv, NE, neq, nf, nl, K).size * sizeof(float) <= SMEM_LIMIT;
 }
 
 // Whether nv runs on an instantiation: nv up to the largest, where that
 // instantiation's 4-env block fits one block's shared memory (at nv = 16
 // it stops fitting at about K = 140 contacts); every other nv >= 1 runs on
-// the wide kernel, which takes 2 or 1 envs per block where 4 do not fit.
+// the wide kernel, one env per block.
 bool on_instantiation(int nv, int NE, int neq, int nf, int nl, int K) {
     bool fits = false;
     with_nv<NEWTON_NVS>(nv, [&](auto n) {
@@ -1303,6 +1682,15 @@ bool on_instantiation(int nv, int NE, int neq, int nf, int nl, int K) {
 
 }  // namespace
 
+#ifdef NEWTON_CLOCK
+// The buffer (NPHASE, B) int64 that the wide kernel's launches write their
+// cycle counts to (null: none).
+extern "C" int gst_newton_clock(void* buf)
+{
+    return (int)cudaMemcpyToSymbol(clock_out, &buf, sizeof(buf));
+}
+#endif
+
 // Launch shape for these sizes: shape[0] envs per block, shape[1] threads,
 // shape[2] bytes of dynamic shared memory; all 0 where nv < 1, or where the
 // wide kernel's single env does not fit a block.
@@ -1312,12 +1700,10 @@ extern "C" void gst_newton_solve_shape(int nv, int NE, int neq, int nf, int nl, 
     shape[0] = shape[1] = shape[2] = 0;
     if (nv < 1) return;
     if (!on_instantiation(nv, NE, neq, nf, nl, K)) {
-        const int E = wide_envs(nv, NE, neq, nf, nl, K);
-        if (E == 0) return;
-        const Layout<0> L(nv, NE, neq, nf, nl, K, E);
-        shape[0] = E;
-        shape[1] = E * WARP;
-        shape[2] = E * L.size * (int)sizeof(float);
+        if (!wide_fits(nv, NE, neq, nf, nl, K)) return;
+        shape[0] = 1;
+        shape[1] = WT;
+        shape[2] = Layout<0>(nv, NE, neq, nf, nl, K).size * (int)sizeof(float);
         return;
     }
     with_nv<NEWTON_NVS>(nv, [&](auto n) {
@@ -1342,18 +1728,16 @@ extern "C" int gst_newton_solve(
     const cudaStream_t st = (cudaStream_t)stream;
     if (nv < 1) return (int)cudaErrorInvalidValue;
     if (!on_instantiation(nv, NE, neq, nf, nl, K)) {
-        const int E = wide_envs(nv, NE, neq, nf, nl, K);
-        if (E == 0) return (int)cudaErrorInvalidValue;
+        if (!wide_fits(nv, NE, neq, nf, nl, K)) return (int)cudaErrorInvalidValue;
         if (B == 0) return 0;
-        const Layout<0> L(nv, NE, neq, nf, nl, K, E);
-        const size_t smem = (size_t)E * L.size * sizeof(float);
+        const Layout<0> L(nv, NE, neq, nf, nl, K);
+        const size_t smem = (size_t)L.size * sizeof(float);
         if (smem > 48 * 1024) {
             cudaError_t err = cudaFuncSetAttribute(
                 newton_solve_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
             if (err != cudaSuccess) return (int)err;
         }
-        newton_solve_wide<<<(B + E - 1) / E, E * WARP, smem, st>>>(
-            in, out, L, B, max_iters, ls_len, bracket_len, tol);
+        newton_solve_wide<<<B, WT, smem, st>>>(in, out, L, B, max_iters, ls_len, bracket_len, tol);
         return (int)cudaGetLastError();
     }
     return with_nv<NEWTON_NVS>(nv, [&](auto n) {

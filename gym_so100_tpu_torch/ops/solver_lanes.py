@@ -283,7 +283,7 @@ def solve_fused(m: Model, qM, a0, efc: EfcLanes, warmstart=None):
     inside the kernel).  A larger nv, or one whose instantiation's 4-env
     block would not fit one block's shared memory, runs on the runtime-nv
     kernel, which keeps every dof-sized vector and the triangle in shared
-    memory as well, 4, 2 or 1 envs per block.  The kernel's launch shape
+    memory as well, one env per block of four warps.  The kernel's launch shape
     (`gst_newton_solve_shape`) is zero where one env's region exceeds one
     block's 232,448 B of shared memory on the H100, and this function
     raises ValueError there."""

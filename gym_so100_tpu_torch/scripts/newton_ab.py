@@ -8,8 +8,14 @@ on one GPU.
 `--define NAME=MACRO[=VALUE]` adds `-DMACRO[=VALUE]` to the build of
 source NAME: `--source wide=gym_so100_tpu_torch/csrc/newton_solve.cu
 --define wide=NEWTON_NVS=` builds no instantiation, so that every nv runs
-on the runtime-nv kernel.  Each source is compiled with the checkout's
-`csrc/hull_sweep.cu` in one nvcc call, as `kernels.py` builds the port,
+on the runtime-nv kernel; `--define NAME=NEWTON_CLOCK` builds source NAME
+with the runtime-nv kernel's cycle counters (`clock64()` per phase and per
+env into a buffer that `gst_newton_clock` sets; the default build compiles
+none of them), and each state that runs on that kernel then also prints
+the mean cycles per env of each phase, its share, the mean `niter` and the
+mean over groups of 4 consecutive envs of their largest `niter` (the
+iterations a 4-env block waits for).  Each source is compiled with the
+checkout's `csrc/hull_sweep.cu` in one nvcc call, as `kernels.py` builds the port,
 with its flags (`kernels.NVCC_FLAGS`), into a library of its own under
 `gym_so100_tpu_torch/_build/ab/`, one build after another; each build's
 nvcc seconds and its ptxas lines (registers, spills, one block per
@@ -27,8 +33,12 @@ checkout's own modules (its kernels included):
 * `panda`: the Panda EE scene (nv = 15), 1024 envs, K = 24, after 4
   control steps holding each mocap target on its ee and 8 after moving it
   3 cm along +x (phase 14's moves, which that phase now cuts to 2 + 6);
+* `mc36` and `mc18`: `chip_smoke.py`'s five-cube scene (nv = 36, the
+  runtime-nv kernel), 4096 envs, and its one-extra-cube scene (nv = 18),
+  1024 envs, K = 32, each after phase 15's 4 control steps from its start;
 
-every build's output is held bit-equal to that of the first build that ran
+`--states` picks some of them (default: all six).  Every build's output
+is held bit-equal to that of the first build that ran
 the state, and every build is timed by CUDA events over 20 launches, in 10
 rounds whose order alternates (first to last, then last to first), so that
 drift of the card falls on each build alike.  Prints one JSON line per
@@ -52,6 +62,14 @@ import torch
 
 from gym_so100_tpu_torch import kernels
 from gym_so100_tpu_torch.scripts.hull_ab import SEED, ee_state, joint_state
+
+# the phases of the runtime-nv kernel's cycle counters (csrc/newton_solve.cu,
+# Phase); a source that counts fewer leaves the rest at 0 (one that has no
+# "back substitution" phase counts it in the Cholesky's)
+PHASES = ("staging", "warmstart pick", "row pass and J'g", "Hessian",
+          "gradient, Cholesky and triangular solves", "djar and M d", "line search",
+          "accept", "force and output", "wait for the block's other envs",
+          "back substitution and the direction")
 
 ROUNDS = 10     # timing rounds, in alternating order
 REPS = 20       # launches per build per round
@@ -85,7 +103,10 @@ def build_all(sources, defines=None):
             ctypes.c_float, _P]
         lib.gst_newton_solve.restype = ctypes.c_int
         ptxas = [ln.strip() for ln in (res.stdout + res.stderr).splitlines()
-                 if "newton_solve_kernel" in ln or "registers" in ln or "spill" in ln]
+                 if "newton_solve" in ln or "registers" in ln or "spill" in ln]
+        if hasattr(lib, "gst_newton_clock"):
+            lib.gst_newton_clock.argtypes = [_P]
+            lib.gst_newton_clock.restype = ctypes.c_int
         built[name] = (lib, nv_arg, seconds, ptxas)
     return built
 
@@ -118,6 +139,45 @@ def panda_state():
                 [0.03, 0.0, 0.0], device=m.device))
         s = fwd.n_steps_batched(m, s, 10)[0]
     return m, s
+
+
+def multicube_state(cubes, B):
+    """chip_smoke.py's multi-cube scene with `cubes` free cubes (K = 32)
+    at B envs after phase 15's control steps from its start."""
+    import tempfile
+
+    import chip_smoke
+    from gym_so100_tpu_torch.models.builder import build_model
+    from gym_so100_tpu_torch.ops import forward as fwd
+
+    with tempfile.TemporaryDirectory() as tmp:
+        m, _ = build_model(str(chip_smoke.write_multicube_scene(tmp, cubes)),
+                           max_contacts=chip_smoke.MC_K, device="cuda")
+    s = chip_smoke._multicube_start(m, B)
+    for _ in range(chip_smoke.MC_STEPS):
+        s = fwd.n_steps_batched(m, s, 10)[0]
+    return m, s
+
+
+def clock_split(lib, call, B, niter):
+    """Run `call` once with the cycle counters of a NEWTON_CLOCK build on;
+    returns the mean cycles per env of each phase and its share, and the
+    iteration counts that bound a block of 4 envs."""
+    buf = torch.zeros(len(PHASES), B, dtype=torch.int64, device="cuda")
+    assert lib.gst_newton_clock(buf.data_ptr()) == 0
+    assert call() == 0
+    torch.cuda.synchronize()
+    assert lib.gst_newton_clock(None) == 0
+    cyc = buf.double().mean(1)
+    total = max(float(cyc.sum()), 1.0)
+    n = niter.double()
+    groups = n[: B - B % 4].view(-1, 4)
+    return dict(
+        cycles_per_env={p: round(float(c), 1) for p, c in zip(PHASES, cyc)},
+        share={p: round(float(c) / total, 4) for p, c in zip(PHASES, cyc)},
+        cycles_per_env_total=total, cycles_per_iteration=total / float(n.mean()),
+        niter_mean=float(n.mean()), niter_max4_mean=float(groups.amax(1).mean()),
+        niter_hist={int(k): int((n == k).sum()) for k in n.unique()})
 
 
 def solver_inputs(m, physics):
@@ -164,6 +224,8 @@ def run_state(label, m, physics, built):
             entry["niter_mean"] = float(out[2 * m.nv].mean())
             runs[name] = call
             entry["ms"] = []
+            if hasattr(lib, "gst_newton_clock") and m.nv > 16:
+                entry["clock"] = clock_split(lib, call, B, out[2 * m.nv].clone())
         res[name] = entry
     names = list(runs)
     start = torch.cuda.Event(enable_timing=True)
@@ -190,6 +252,8 @@ def main(argv=None):
                          "runs a state is the reference of its bit-equality check)")
     ap.add_argument("--define", action="append", default=[], metavar="NAME=MACRO[=VALUE]",
                     help="build source NAME with -DMACRO[=VALUE] (repeat)")
+    ap.add_argument("--states", default="k16_touchdown,k16,ee,panda,mc36,mc18",
+                    help="comma-separated states to run (default: all six)")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("newton_ab: no CUDA device", file=sys.stderr)
@@ -210,9 +274,11 @@ def main(argv=None):
             print(f"{name} ptxas: {ln}", flush=True)
     makers = {"k16_touchdown": lambda: joint_state(4096, 16, touchdown=True),
               "k16": lambda: joint_state(4096, 16, touchdown=False),
-              "ee": ee_state, "panda": panda_state}
+              "ee": ee_state, "panda": panda_state,
+              "mc36": lambda: multicube_state(4, 4096), "mc18": lambda: multicube_state(1, 1024)}
     ok = True
-    for label, make in makers.items():
+    for label in a.states.split(","):
+        make = makers[label]
         res = run_state(label, *make(), built)
         ok &= all(e.get("equal", True) for e in res.values())
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

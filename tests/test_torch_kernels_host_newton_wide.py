@@ -1,10 +1,11 @@
 """The Newton-solve kernel's runtime-nv kernel (nv above the largest
-instantiation), its CUDA source built in float64 for the host (the shim:
-tests/kernels_host.py), on chip_smoke.py's multi-cube scenes.
+instantiation; one env per block of 4 warps), its CUDA source built in
+float64 for the host (the shim: tests/kernels_host.py), on
+chip_smoke.py's multi-cube scenes.
 
 The states: so100_transfer_cube.xml with 4 free cubes (nv = 36, the
 five-cube scene) and with 1 (nv = 18: one slot per lane), float32, K =
-32, 6 envs (the second 4-env block half empty) from chip_smoke's start
+32, 6 envs (6 blocks) from chip_smoke's start
 (qpos0, the arm joints moved by a seeded draw) after 2 control steps of the
 port's `n_steps_batched` on the CPU: the cubes resting on the table, 4
 contacts each, in every env.
@@ -24,18 +25,30 @@ contacts each, in every env.
 * An nv the instantiations take, with so many contact rows that its
   instantiation's 4-env block does not fit one block's shared memory (the
   resting-cube state with K = 96 contact slots; the float64 build counts
-  shared memory in doubles), runs on the runtime-nv kernel at fewer envs
-  per block: the default build's launch shape and results are those of the
+  shared memory in doubles), runs on the runtime-nv kernel, one env per
+  block: the default build's launch shape and results are those of the
   build with no instantiation, bit for bit.
-* The check fails for mutated copies of the source: the triangular solve
-  leaving out each lane's second slot (rows 32-35 at nv = 36), and the
-  owner of a triangle entry in the Cholesky update computed mod 16 (lanes
-  l and l + 16 then update the same entries, and half go without).
+* A batch of 5 envs at nv = 36 gives each env the bits it gets solved
+  alone (B = 1).
+* The check fails for mutated copies of the source: the forward
+  triangular solve leaving out the rows past 32 (rows 32-35 at nv = 36:
+  the last cube's z and rotations, coupled by its contacts' friction to
+  its x and y; leaving them out of the back substitution moved the
+  results by less than the check's 1e-9), the first triangle entry a
+  thread updates right of a Cholesky column found mod 16 in place of mod
+  96, the threads of the trailing update (threads t and t + 16 then update
+  the same entries, and most go without), and the block barrier dropped between the jar pass
+  at the trial point and the pass over its units, whose costs the per-lane
+  sums add up (the units then read jar values the pass has not written
+  yet).
 """
+
+import dataclasses
 
 import pytest
 import torch
 from kernels_host import (  # noqa: F401 (fixtures)
+    FULL_BUDGETS,
     _multicube_state,
     _panda_state,
     _problem,
@@ -91,6 +104,28 @@ def test_wide_kernel_source_equals_plain_in_float64(libs, cube_floor, cubes):
     check_floor(libs[BUILT], floor)
 
 
+def _envs(problem, sl):
+    """The solver problem of the envs `sl` (a slice of the batch)."""
+    m, qM, a0, efc, warm = problem
+    lane = lambda t: t[..., sl].contiguous()
+    efc = dataclasses.replace(efc, **{
+        f.name: lane(getattr(efc, f.name)) for f in dataclasses.fields(efc)
+        if isinstance(getattr(efc, f.name), torch.Tensor)})
+    return m, lane(qM), a0[sl].contiguous(), efc, warm[sl].contiguous()
+
+
+def test_wide_kernel_env_alone_equals_env_in_a_batch_of_5(libs, cube_floor):
+    floor = cube_floor(4)
+    batch = _envs(floor["problem"], slice(0, 5))
+    out = _solve_host(libs[BUILT], *batch, FULL_BUDGETS, floor["tol"])
+    assert out[0].shape == (5, 36) and torch.isfinite(out[0]).all()
+    for b in range(5):
+        alone = _solve_host(libs[BUILT], *_envs(batch, slice(b, b + 1)), FULL_BUDGETS,
+                            floor["tol"])
+        for a, one in zip(out, alone):
+            assert torch.equal(a[b:b + 1], one)
+
+
 @pytest.fixture(scope="module", params=["resting_cube_nv12", "panda_nv15"])
 def small_problem(request, contact_state):
     if request.param == "panda_nv15":
@@ -136,7 +171,7 @@ def test_instantiated_nv_with_too_many_rows_runs_on_the_wide_kernel(libs, contac
     m, qM, a0, efc, warm = problem
     *budgets, tol = solver_lanes.budgets(m, torch.float32)
     shape = _shape(libs[BUILT], m, efc)
-    assert m.nv == 12 and shape[0] in (1, 2) and shape == _shape(libs[()], m, efc)
+    assert m.nv == 12 and shape[0] == 1 and shape == _shape(libs[()], m, efc)
     own = _solve_host(libs[BUILT], *problem, budgets, tol)
     wide = _solve_host(libs[()], *problem, budgets, tol)
     assert torch.isfinite(own[0]).all() and (own[2] >= 1).all()
@@ -145,18 +180,19 @@ def test_instantiated_nv_with_too_many_rows_runs_on_the_wide_kernel(libs, contac
 
 
 # Mutations of newton_solve.cu that the nv = 36 check must catch: the
-# forward triangular solve's row loop cut to each lane's first slot, and
-# the first entry a lane updates right of a Cholesky column found mod 16
-# in place of mod 32.  (The pivot broadcast from lane tri(j, j) % 16 moves
-# the results by 3e-14 only: that lane reads the pivot before its owner's
-# last update, L[j][j-1]^2, which the cubes' decoupled blocks keep tiny.)
+# forward solve's row loop cut to the first 32 rows, the first entry a
+# thread updates right of a Cholesky column found mod 16 in place of mod
+# 96, and the barrier after the jar pass at the trial point dropped.
 MUTATIONS = {
     "row_loop_first_slot_only": (
-        "for (int i = lane; i < nv; i += WARP) {\n            if (i == k) r[i] = yk;",
-        "for (int i = lane; i < nv && i < WARP; i += WARP) {\n            if (i == k) r[i] = yk;"),
+        "for (int i = j + lane; i < nv; i += WARP) {",
+        "for (int i = j + lane; i < nv && i < WARP; i += WARP) {"),
     "update_owner_mod_16": (
-        "t0 + (lane - t0 % WARP + WARP) % WARP",
-        "t0 + (lane - t0 % 16 + WARP) % 16"),
+        "t0 + ((own - t0) % TS + TS) % TS",
+        "t0 + ((own - t0) % 16 + 16) % 16"),
+    "barrier_dropped_before_unit_costs": (
+        "__syncthreads();                       // jar and x - x0 at x_new are in jn, dxn",
+        ""),
 }
 
 
