@@ -146,7 +146,12 @@ Phases, each printed on its own line:
     chain_body_fn at n = 50, with the device kernels of one call counted
     in a profiler trace, (b) at n = 200 and the cost of one more iteration,
     (d) the kernel, and (p) chain_plain, counted, by CUDA events, and the
-    kernel's device time per launch from a profiler trace;
+    kernel's device time per launch at n = 0, 50 and 200 from a profiler
+    trace of each: its fixed cost (n = 0), its time per iteration (the slope from
+    50 to 200) in ns and in cycles at the SM clock measured in the run, its
+    launch shape, ptxas lines, and its bound: the largest of the bytes, the
+    operations at the rate without multiply-add, and the chain of dependent
+    operations at the latency and clock csrc/chain_latency.cu measures;
 17. print the build, ptxas, launch-shape and check lines again (so that
     the end of the output holds them), the kernel table as one JSON line
     (per kernel: the K = 16 row, the statistic its check bounds with that
@@ -2271,14 +2276,18 @@ def run_chain_probe(card):
     on the finite components, the non-finite ones the same set (nan where
     nan, the same infinities), every lane finite at n = 10; one launch per
     call, counted; then rows (a), (b), (d) and (p) of the probe's `main`,
-    counted.  Returns the kernel's row."""
+    counted, row (d) with the kernel's device time at n = 0, 50 and 200:
+    its fixed cost and its time per iteration, and the card's dependent
+    latency and SM clock measured for the chain's floor.  Returns the
+    kernel's row, whose bound is the largest of three terms."""
     import torch
 
     from gym_so100_tpu_torch import kernels
     from gym_so100_tpu_torch.scripts import probe_chain as pc
 
     q, v, M = (torch.from_numpy(a).to("cuda") for a in pc.probe_inputs(pc.B))
-    log_shape("chain_probe", kernels.launch_shape("gst_chain_probe", pc.B), pc.B)
+    shape = kernels.launch_shape("gst_chain_probe", pc.B)
+    log_shape("chain_probe", shape, pc.B)
     checks = {}
     for n in (pc.N, CHAIN_SHORT):
         c = pc.compare(pc.chain_fused(q, v, M, n), pc.chain_plain(q, v, M, n))
@@ -2300,17 +2309,34 @@ def run_chain_probe(card):
     torch.cuda.synchronize()
     launches = pc.chain_fused.launches
     assert launches == res["kernel_calls"], (launches, res["kernel_calls"])
-    # least work: 16 floats read and 3 written per env; OPS_PER_ITER per
-    # env and iteration
+    # least work: 16 floats read and 3 written per env; OPS_PER_ITER separate
+    # float operations per env and iteration, at the rate without multiply-
+    # add (the build contracts none); and CHAIN_DEPTH of them per iteration
+    # one after another, at the latency and clock measured in this run
     nbytes = 4 * (q.numel() + v.numel() + M.numel() + 3 * pc.B)
-    bound = _bound(nbytes, pc.OPS_PER_ITER * pc.N * pc.B)
+    terms = dict(bytes_ms=nbytes / H100_BYTES_PER_S * 1e3,
+                 ops_ms=pc.OPS_PER_ITER * pc.N * pc.B / (H100_F32_OPS_PER_S / 2) * 1e3,
+                 chain_ms=res["chain_floor_ms"])
+    bound = dict(bound_ms=max(terms.values()),
+                 bound_by="bytes" if terms["bytes_ms"] >= max(terms.values()) else "operations")
+    lat = res["latency"]
     # the kernel's own device time where the trace has it; a call from
     # Python takes longer than the kernel, so the events time the host
     ms = res.get("d_device_ms") or res["d_ms"]
     log(f"kernel chain_probe: {ms:.4f} ms per launch ("
         f"{'profiler' if res.get('d_device_ms') else 'CUDA events'}; {res['d_ms']:.4f} ms per "
-        f"call from Python), bound {bound['bound_ms']:.6f} ms ({bound['bound_by']}), plain "
+        f"call from Python), bound {bound['bound_ms']:.6f} ms (the largest of bytes "
+        f"{terms['bytes_ms']:.6f}, operations without multiply-add {terms['ops_ms']:.6f}, "
+        f"the dependent chain {terms['chain_ms']:.6f}), plain "
         f"{res['p_ms']:.4f} ms, {launches} launches, on {card}", recap=True)
+    fixed, per = res.get("d_fixed_ms"), res.get("d_us_per_iter")
+    log(f"chain probe kernel: {shape[0]} envs per block, {shape[1]} threads, "
+        f"{-(-pc.B // shape[0])} blocks; fixed cost (n = 0) "
+        + (f"{fixed:.5f} ms, {per * 1e3:.2f} ns per iteration" if per is not None
+           else "not measured")
+        + (f" ({res['d_cycles_per_iter']:.1f} cycles)" if per is not None else "")
+        + f"; dependent FMUL/FADD {lat['cycles_per_op']['fmul_fadd']:.3f} cycles at "
+        f"{lat['sm_clock_ghz']:.4f} GHz (measured); on {card}", recap=True)
     return dict(
         name="chain_probe", route="cuda", source="gym_so100_tpu_torch/csrc/chain_probe.cu",
         replaces="devtools/probe_pallas.py:115", launches=launches,
@@ -2320,6 +2346,10 @@ def run_chain_probe(card):
                    "(the non-finite ones equal as sets)",
         check_value=max(c["max_abs_err"] for c in checks.values()), check_bound=0.0,
         nonfinite_lanes={str(n): c["nonfinite_lanes"] for n, c in checks.items()},
+        bound_terms=terms, fixed_ms=fixed, us_per_iter=per,
+        cycles_per_iter=res.get("d_cycles_per_iter"), latency_cycles=lat["cycles_per_op"],
+        sm_clock_ghz=lat["sm_clock_ghz"], envs_per_block=shape[0], threads_per_block=shape[1],
+        ptxas=ptxas_lines("chain_probe_kernel"),
         probe={k: res.get(k) for k in ("a_ms", "a_kernels", "b_ms", "us_per_iter",
                                        "us_per_kernel", "d_over_a")},
     )

@@ -1,5 +1,5 @@
 // A chain of small elementwise operations fused into one kernel, one thread
-// per env.
+// per env, one warp on each SM sub-partition.
 //
 // Replaces the Pallas kernel devtools/probe_pallas.py::chain_pallas (body
 // pallas_kernel), which the JAX round wrote to measure what per-operation
@@ -18,6 +18,24 @@
 // read consecutive addresses of each row, so every load is coalesced),
 // keeps q, v and M in registers for the whole loop and stores 3 floats.
 //
+// What bounds it: per env 16 floats read and 3 written, 84 float
+// operations per iteration (no multiply-add: see Rounding) and a chain of
+// 11 dependent ones (v -> t 3 deep -> w t, ct 2 -> r 1 -> M r 3 -> v 2).
+// At B = 4096 the bytes take ~0.1 us and the operations ~0.5 us over the
+// whole card, but a warp issues one instruction a cycle, so each warp
+// spends at least 84 cycles on an iteration of its 32 envs: the kernel is
+// bound by the issue of its warps, one iteration after another.
+//
+// Design: blocks of 4 warps, so at B = 4096 the 32 blocks go to 32 SMs with
+// one warp on each of their four schedulers (256-thread blocks put two
+// warps on each scheduler of 16 SMs: twice the issue cycles).  v is
+// computed before M's update and the loop is unrolled 10 times.  Without
+// a min-blocks hint ptxas chose 32 registers; with __launch_bounds__(128, 1)
+// it takes 40 and schedules an iteration in ~91 cycles, 94 with 32.  An
+// env spread over three lanes (a row of M each, v exchanged by shuffles:
+// ~53 operations a lane) was slower: a shuffle's 26 cycles fall on every
+// iteration's chain (scripts/chain_ab.py, csrc/chain_latency.cu; PERF.md).
+//
 // Rounding: every operation is pallas_kernel's, in its order, each rounded
 // on its own (the build passes -fmad=false, so no multiply-add is
 // contracted): the plain PyTorch version (scripts/probe_chain.py::
@@ -26,19 +44,14 @@
 // float.  The chain diverges in some lanes (|v| grows without bound, to
 // inf and nan by n = 50 in about a third of them); those lanes follow the
 // same operations and so the same non-finite values.
-//
-// What bounds it: per env 16 floats read and 3 written, and about 90
-// float operations per iteration, so at B = 4096 both the bytes and the
-// operations take well under a microsecond on an H100: the kernel runs at
-// launch latency.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 128;    // 4 warps: one on each SM sub-partition
 
-__global__ void __launch_bounds__(THREADS) chain_probe_kernel(
+__global__ void __launch_bounds__(THREADS, 1) chain_probe_kernel(
     const float* __restrict__ q, const float* __restrict__ v,
     const float* __restrict__ M, float* __restrict__ out, int n, int B)
 {
@@ -51,6 +64,7 @@ __global__ void __launch_bounds__(THREADS) chain_probe_kernel(
     float m[9];
     for (int k = 0; k < 9; ++k) m[k] = M[k * B + b];
 
+#pragma unroll 10
     for (int it = 0; it < n; ++it) {
         // t = 2 * cross(xyz, v)
         const float t0 = c2 * (y * v2 - z * v1);
@@ -68,6 +82,10 @@ __global__ void __launch_bounds__(THREADS) chain_probe_kernel(
         const float s0 = m[0] * r0 + m[1] * r1 + m[2] * r2;
         const float s1 = m[3] * r0 + m[4] * r1 + m[5] * r2;
         const float s2 = m[6] * r0 + m[7] * r1 + m[8] * r2;
+        // v = s * 0.5 + r * 0.5
+        v0 = s0 * c05 + r0 * c05;
+        v1 = s1 * c05 + r1 * c05;
+        v2 = s2 * c05 + r2 * c05;
         // M = M * 0.999 + 0.001 * s_i * r_j
         const float s[3] = {s0, s1, s2};
         const float r[3] = {r0, r1, r2};
@@ -77,10 +95,6 @@ __global__ void __launch_bounds__(THREADS) chain_probe_kernel(
 #pragma unroll
             for (int j = 0; j < 3; ++j) m[3 * i + j] = m[3 * i + j] * c999 + si * r[j];
         }
-        // v = s * 0.5 + r * 0.5
-        v0 = s0 * c05 + r0 * c05;
-        v1 = s1 * c05 + r1 * c05;
-        v2 = s2 * c05 + r2 * c05;
     }
     out[b] = v0;
     out[B + b] = v1;

@@ -81,29 +81,37 @@ def takes_nv(path):
     return re.search(r"gst_newton_solve\([^)]*int nv,", Path(path).read_text()) is not None
 
 
+def nvcc_library(out, srcs, flags=(), entry=""):
+    """Compile `srcs` with the port's flags (`kernels.NVCC_FLAGS`) and
+    `flags` into the shared library `out` under AB_DIR; returns (the loaded
+    library, nvcc seconds, the ptxas lines: registers, spills and those
+    that name `entry`)."""
+    AB_DIR.mkdir(parents=True, exist_ok=True)
+    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, *flags, "-o", str(AB_DIR / out),
+           *map(str, srcs)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {out}:\n{res.stdout}{res.stderr}")
+    ptxas = [ln.strip() for ln in (res.stdout + res.stderr).splitlines()
+             if (entry and entry in ln) or "registers" in ln or "spill" in ln]
+    return ctypes.CDLL(str(AB_DIR / out)), seconds, ptxas
+
+
 def build_all(sources, defines=None):
     """Compile every (name, path), one after another, each with its
     `defines[name]` (-D flags); returns {name: (library, takes nv, nvcc
     seconds, ptxas lines)}."""
-    AB_DIR.mkdir(parents=True, exist_ok=True)
     built = {}
     for name, path in sources:
-        out = AB_DIR / f"libnewton_{name}.so"
-        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, *(defines or {}).get(name, []),
-               "-o", str(out),
-               str(kernels.CSRC / "hull_sweep.cu"), str(path)]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{res.stdout}{res.stderr}")
+        lib, seconds, ptxas = nvcc_library(
+            f"libnewton_{name}.so", [kernels.CSRC / "hull_sweep.cu", path],
+            (defines or {}).get(name, []), entry="newton_solve")
         nv_arg = takes_nv(path)
-        lib = ctypes.CDLL(str(out))
         lib.gst_newton_solve.argtypes = [_P] * 9 + [_I] * (10 if nv_arg else 9) + [
             ctypes.c_float, _P]
         lib.gst_newton_solve.restype = ctypes.c_int
-        ptxas = [ln.strip() for ln in (res.stdout + res.stderr).splitlines()
-                 if "newton_solve" in ln or "registers" in ln or "spill" in ln]
         if hasattr(lib, "gst_newton_clock"):
             lib.gst_newton_clock.argtypes = [_P]
             lib.gst_newton_clock.restype = ctypes.c_int

@@ -26,15 +26,19 @@ of (a), the counterpart of the probe's unrolled jit, a comparison only;
 (d) the kernel at n = 50; and (p) `chain_plain` at n = 50.  On the card the
 times are CUDA events over back-to-back calls, it counts the device
 kernels that one call of (a) runs, and it reads the kernel's own device
-time per launch from a profiler trace (a call of (d) is shorter on the
-card than its launch from Python, so the events time the host); on the
-CPU they are host clock times.  Each row names the card
-and its power limit.
+time per launch at n = 0, 50 and 200 from a profiler trace of each (a
+call of (d) is shorter on the card than its launch from Python, so the
+events time the host): its fixed cost (n = 0) and its time per
+iteration (the slope from 50 to 200), in µs and in cycles at the SM
+clock that `dependent_latency` measures in the same run, beside the
+chain's floor (`chain_floor_ms`); on the CPU they are host clock times.
+Each row names the card and its power limit.
 """
 
 from __future__ import annotations
 
 import argparse
+import statistics
 import subprocess
 import sys
 import time
@@ -51,6 +55,12 @@ REPS = 20       # calls timed per row (the kernel: 5 x REPS)
 # crosses and the doubling 12 + 9, the rotation 9, M v 15, the M update 3 +
 # 27, the mean 9
 OPS_PER_ITER = 84
+# dependent float operations per iteration: v -> t (3 deep) -> w t, ct (2)
+# -> r (1) -> M r (3) -> v (2); the chain's floor is CHAIN_DEPTH n of them
+CHAIN_DEPTH = 11
+# the kinds of dependent operation that csrc/chain_latency.cu times
+LATENCY_KINDS = ("fadd", "fmul", "fmul_fadd", "shfl")
+LATENCY_ITERS = 1024    # x 64 dependent operations per timed chain
 
 
 def probe_inputs(num_envs=B, seed=SEED):
@@ -183,6 +193,77 @@ def device_events(fn, reps=1):
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
+def kernel_device_us(fn, reps, tries=3):
+    """Mean device time (µs) of the chain kernel's launches in a profiler
+    trace of `reps` calls of fn() (after a warm-up call), counting only the
+    kernels inside the trace's device-side span of the calls.  The profiler
+    now and then loses kernel events, and late in a long process a trace
+    has held kernels that fell outside that span: a trace that holds fewer
+    than half of the calls' kernels is taken again, up to `tries` traces;
+    None if every one fell short."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function("chain_probe_timed"):
+                for _ in range(reps):
+                    fn()
+            torch.cuda.synchronize()
+        ev = [e.time_range for e in prof.events() if e.device_type == DeviceType.CUDA
+              and e.name == "chain_probe_timed"]
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and "chain_probe_kernel" in e.name
+              and any(s.start <= e.time_range.start <= s.end for s in ev)]
+        if len(us) * 2 >= reps:
+            return sum(us) / len(us)
+    return None
+
+
+def dependent_latency(lib=None):
+    """The current card's cycles per dependent operation of each of
+    LATENCY_KINDS (the least of 3 chains of 64 LATENCY_ITERS operations on
+    one warp, the loop's branch included) and its SM clock in GHz (the
+    median over the chains of clock64() cycles over %globaltimer ns), from
+    `gst_chain_latency` (csrc/chain_latency.cu) in `lib`, the port's
+    library by default."""
+    from gym_so100_tpu_torch import kernels
+
+    if lib is None:
+        lib = kernels.library()
+    fn = lib.gst_chain_latency
+    fn.argtypes, fn.restype = kernels._SIGNATURES["gst_chain_latency"]
+    inp = torch.ones(34, device="cuda")
+    inp[33] = 0.0
+    out = torch.empty(32, device="cuda")
+    res = torch.zeros(2, dtype=torch.int64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    ops = 64 * LATENCY_ITERS
+    cycles, ghz = {}, []
+    for kind, label in enumerate(LATENCY_KINDS):
+        runs = []
+        for _ in range(3):
+            err = fn(inp.data_ptr(), out.data_ptr(), res.data_ptr(), kind, LATENCY_ITERS,
+                     stream)
+            if err != 0:
+                raise RuntimeError(f"gst_chain_latency: CUDA error {err} at launch")
+            c, ns = res.tolist()
+            runs.append(c / ops)
+            ghz.append(c / ns)
+        cycles[label] = min(runs)
+    return dict(cycles_per_op=cycles, sm_clock_ghz=statistics.median(ghz),
+                ops_per_chain=ops)
+
+
+def chain_floor_ms(n, lat):
+    """The least time of n iterations of the chain: CHAIN_DEPTH n dependent
+    float operations at the alternating FMUL/FADD latency and the SM clock
+    of `lat` (`dependent_latency`)."""
+    return CHAIN_DEPTH * n * lat["cycles_per_op"]["fmul_fadd"] / lat["sm_clock_ghz"] / 1e6
+
+
 def timings(q, v, M, rows="abcdp", reps=REPS, log=print, card=""):
     """Run the rows of `main` on these tensors; returns their numbers.
     `kernel_calls` is how many times row (d) called `chain_fused`."""
@@ -219,12 +300,35 @@ def timings(q, v, M, rows="abcdp", reps=REPS, log=print, card=""):
         res["d_ms"] = timed_ms(lambda: chain_fused(q, v, M, N), 5 * reps, device)
         log(f"(d) chain_fused n = {N}: {res['d_ms']:.4f} ms per call ({clock}){on}")
         if device.type == "cuda":
-            res["kernel_calls"] += 1 + reps
-            us = [e.time_range.elapsed_us() for e in device_events(
-                lambda: chain_fused(q, v, M, N), reps) if "chain_probe_kernel" in e.name]
-            res["d_device_ms"] = dev_ms = sum(us) / len(us) / 1e3 if us else None
-            log(f"    the kernel's device time per launch (profiler): "
-                f"{f'{dev_ms:.4f} ms' if dev_ms else 'not measured'}")
+            ns = (0, N, N_LONG)
+            calls = []
+
+            def fused(n):
+                calls.append(n)
+                return chain_fused(q, v, M, n)
+
+            dev = {n: kernel_device_us(lambda n=n: fused(n), reps) for n in ns}
+            res["kernel_calls"] += len(calls)
+            dev = {n: us / 1e3 for n, us in dev.items() if us is not None}
+            res["d_device_ms"] = dev.get(N)
+            log(f"    the kernel's device time per launch (profiler): " + ", ".join(
+                f"n = {n} " + (f"{dev[n]:.5f} ms" if n in dev else "not measured")
+                for n in ns))
+            if len(dev) == len(ns):
+                res["d_fixed_ms"] = dev[0]
+                res["d_us_per_iter"] = (dev[N_LONG] - dev[N]) / (N_LONG - N) * 1e3
+            lat = res["latency"] = dependent_latency()
+            ghz = lat["sm_clock_ghz"]
+            res["chain_floor_ms"] = chain_floor_ms(N, lat)
+            log(f"    dependent latency (csrc/chain_latency.cu): " + ", ".join(
+                f"{k} {c:.3f}" for k, c in lat["cycles_per_op"].items())
+                + f" cycles; SM clock {ghz:.4f} GHz; the chain's floor at n = {N} "
+                f"{res['chain_floor_ms']:.6f} ms ({CHAIN_DEPTH} x {N} dependent operations)")
+            if "d_us_per_iter" in res:
+                res["d_cycles_per_iter"] = res["d_us_per_iter"] * ghz * 1e3
+                log(f"    fixed cost (n = 0) {dev[0] * 1e3:.3f} us, per iteration "
+                    f"{res['d_us_per_iter'] * 1e3:.2f} ns, "
+                    f"{res['d_cycles_per_iter']:.1f} cycles at {ghz:.4f} GHz")
         for r in "ac":
             if f"{r}_ms" in res:
                 res[f"d_over_{r}"] = res[f"{r}_ms"] / res["d_ms"]

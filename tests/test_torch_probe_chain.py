@@ -24,9 +24,11 @@ nan, the same infinities) besides the finite ones:
   within 1e-5 of max |v| (measured 1.0e-6 of it; the einsums sum in
   another order than XLA's dots), float64 within 1e-12 of it (measured
   1.3e-15);
-* the CUDA source built for the host, bit-equal to `chain_plain` at n = 10
-  and 50, also at a batch that leaves its last block partly empty; a
-  source with one sum regrouped fails that check.
+* the CUDA source built for the host, bit-equal to `chain_plain` at n = 0,
+  10 and 50, at batches that leave 8 envs in the last block's last warp
+  (1000), every block full (1024) and one env in the last block (1025); a
+  source with the rotation's sum regrouped, one row of M r regrouped or M's
+  update rounded in another order fails that check.
 """
 
 import importlib.util
@@ -145,12 +147,14 @@ def host_chain_lib(host_tmp):
     return _chain_lib(host_tmp)
 
 
-@pytest.mark.parametrize("n,B", [(10, 1024), (50, 1024), (50, 1000)])
+@pytest.mark.parametrize("n,B", [(n, B) for n in (0, 10, 50) for B in (1000, 1024, 1025)])
 def test_host_kernel_source_equals_chain_plain(host_chain_lib, n, B):
     q, v, M = _inputs(B)
     ref = pc.chain_plain(q, v, M, n)
     c = _assert_equal(_host_chain(host_chain_lib, q, v, M, n), ref)
-    assert (c["nonfinite_lanes"] == 0) if n == 10 else (c["nonfinite_lanes"] > 0), c
+    assert (c["nonfinite_lanes"] == 0) if n < pc.N else (c["nonfinite_lanes"] > 0), c
+    if n == 0:
+        assert torch.equal(ref, v)
 
 
 def test_host_kernel_launch_shape_and_refusals(host_chain_lib):
@@ -158,7 +162,7 @@ def test_host_kernel_launch_shape_and_refusals(host_chain_lib):
 
     shape = (ctypes.c_int * 3)()
     host_chain_lib.gst_chain_probe_shape(4096, shape)
-    assert tuple(shape) == (256, 256, 0)
+    assert tuple(shape) == (128, 128, 0)    # one env per thread, 4 warps
     q, v, M = _inputs(256)
     out = torch.zeros(3, 256)
     ptrs = [t.data_ptr() for t in (q, v, M, out)]
@@ -167,12 +171,23 @@ def test_host_kernel_launch_shape_and_refusals(host_chain_lib):
     assert bool((out == 0).all())
 
 
-def test_mutated_host_kernel_source_fails(host_tmp):
-    """One sum regrouped (v + (w t + ct) for (v + w t) + ct) must break the
-    bit-equality with chain_plain."""
-    lib = _chain_lib(host_tmp, tag="_mut",
-                     mutate=("const float r0 = v0 + w * t0 + ct0;",
-                             "const float r0 = v0 + (w * t0 + ct0);"))
+MUTATIONS = {
+    # the rotation's sum: v + (w t + ct) for (v + w t) + ct
+    "rotation_sum": ("const float r0 = v0 + w * t0 + ct0;",
+                     "const float r0 = v0 + (w * t0 + ct0);"),
+    # one row of M r: M[1][0] r0 + (M[1][1] r1 + M[1][2] r2)
+    "row_sum": ("const float s1 = m[3] * r0 + m[4] * r1 + m[5] * r2;",
+                "const float s1 = m[3] * r0 + (m[4] * r1 + m[5] * r2);"),
+    # M's update as 0.001 (s_i r_j) for (0.001 s_i) r_j
+    "update_order": ("m[3 * i + j] = m[3 * i + j] * c999 + si * r[j];",
+                     "m[3 * i + j] = m[3 * i + j] * c999 + c001 * (s[i] * r[j]);"),
+}
+
+
+@pytest.mark.parametrize("mutation", list(MUTATIONS))
+def test_mutated_host_kernel_source_fails(host_tmp, mutation):
+    """Each mutation must break the bit-equality with chain_plain."""
+    lib = _chain_lib(host_tmp, tag=f"_mut_{mutation}", mutate=MUTATIONS[mutation])
     q, v, M = _inputs()
     for n in (10, pc.N):
         c = pc.compare(_host_chain(lib, q, v, M, n), pc.chain_plain(q, v, M, n))
