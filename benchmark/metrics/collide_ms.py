@@ -1,0 +1,8 @@
+"""collide_ms: host time (ms) of the `collide` ranges that the program opens in
+`ops/forward.py`, summed over the ten substeps of one traced control step."""
+
+from benchmark.trace import range_ms
+
+
+def read(run):
+    return range_ms(run.trace, "collide")

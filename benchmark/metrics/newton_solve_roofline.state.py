@@ -1,0 +1,7 @@
+"""newton_solve_roofline.state: `newton_solve_roofline` (see that reader),
+read in the state cell, where the end-to-end metric it moves is the
+device's busy time per step, not the host-paced rate."""
+
+from benchmark.harness import reader
+
+read = reader("newton_solve_roofline")
