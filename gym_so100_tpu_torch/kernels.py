@@ -27,7 +27,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("hull_sweep.cu", "newton_solve.cu", "chain_probe.cu", "chain_latency.cu")
+SOURCES = ("hull_sweep.cu", "newton_solve.cu", "chain_probe.cu", "chain_latency.cu",
+           "span_mark.cu")
 # -fmad=false: no multiply-add contraction, so every product and sum rounds
 # as in the plain PyTorch versions' separate elementwise ops; with
 # contraction on, the solver parted from its plain version far beyond the
@@ -103,6 +104,8 @@ _SIGNATURES = {
     "gst_chain_probe_shape": ([_I, _P], None),
     # in, out, res, kind, iters, stream (a measurement of the card)
     "gst_chain_latency": ([_P] * 3 + [_I] * 2 + [_P], ctypes.c_int),
+    # span, stream (a stage mark of the trace, profiling.py)
+    "gst_span_mark": ([_I, _P], ctypes.c_int),
 }
 
 

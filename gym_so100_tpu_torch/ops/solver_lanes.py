@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import profiling
 from ..models.scene import Model
 from .constraint import CDIM
 from .constraint_lanes import EfcLanes
@@ -323,9 +324,18 @@ def solve_lanes(m: Model, qM, a0, efc: EfcLanes, warmstart=None):
     """Newton solve, lanes form: qM (nv, nv, B), a0 (B, nv), warmstart
     (B, nv) or None.  Returns (qacc (B, nv), qfrc_constraint (B, nv),
     niter (B,)).  CPU tensors run the plain version; CUDA tensors launch
-    the kernel, which takes float32 only."""
+    the kernel, which takes float32 only.  While a profiler records, it
+    counts the solves, their Newton iterations and the solves that used
+    the whole iteration budget (`profiling.count`)."""
     if a0.device.type == "cpu":
-        return solve_plain(m, qM, a0, efc, warmstart)
-    if a0.dtype != torch.float32:
+        out = solve_plain(m, qM, a0, efc, warmstart)
+    elif a0.dtype != torch.float32:
         raise TypeError(f"the CUDA solver kernel takes float32, got {a0.dtype}")
-    return solve_fused(m, qM, a0, efc, warmstart)
+    else:
+        out = solve_fused(m, qM, a0, efc, warmstart)
+    if profiling.recording():
+        niter = out[2]
+        profiling.count("newton.solves", niter.numel())
+        profiling.count("newton.iterations", niter)
+        profiling.count("newton.capped", niter >= budgets(m, a0.dtype)[0])
+    return out

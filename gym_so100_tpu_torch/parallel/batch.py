@@ -24,6 +24,7 @@ from ..envs import constants as C
 from ..envs import core
 from ..models.scene import Model
 from ..ops import smooth_lanes
+from ..profiling import annotate
 
 EPISODE_LIMITS = {
     "so100_touch_cube": 300,
@@ -192,14 +193,17 @@ class BatchedEnv:
         # The whole autoreset branch runs only when some env (of the whole
         # batch) is done.  The test costs one device-to-host sync per control
         # step.
-        if self._any(done):
-            fresh = core.reset(self.m, self._spawn() if reset_box_pose is None
-                               else self._poses(reset_box_pose))
-            es2 = _where(done, fresh, es2)
-            if self.renderer is not None:
-                obs_out = self._pixel_obs(es2.physics)
-            else:
-                obs_out = torch.where(done[:, None], self.observe(fresh), final_obs)
+        with annotate("done_sync"):
+            any_done = self._any(done)
+        if any_done:
+            with annotate("autoreset"):
+                fresh = core.reset(self.m, self._spawn() if reset_box_pose is None
+                                   else self._poses(reset_box_pose))
+                es2 = _where(done, fresh, es2)
+                if self.renderer is not None:
+                    obs_out = self._pixel_obs(es2.physics)
+                else:
+                    obs_out = torch.where(done[:, None], self.observe(fresh), final_obs)
         return es2, obs_out, reward, terminated, truncated, {
             "final_obs": final_obs, "ncon": d.ncon,
         }

@@ -31,6 +31,7 @@ import torch
 from ..models.scene import Model, State
 from ..ops import quat
 from ..ops import smooth_lanes
+from ..profiling import annotate
 
 TRI_CHUNK = 1024
 CHUNK_ELEMS = 1 << 24     # elements of one (envs x triangles x pixels) block
@@ -223,8 +224,9 @@ class Renderer:
     def render_batch(self, s: State, height=48, width=64, camera="top") -> torch.Tensor:
         """(B, height, width, 3) uint8 frames of the batched State `s`."""
         cam_id = self.cam[camera] if isinstance(camera, str) else camera
-        d = smooth_lanes.kinematics(self.m, s)
-        return self.render_poses(d.xpos, d.xquat, height, width, cam_id)
+        with annotate("render"):
+            d = smooth_lanes.kinematics(self.m, s)
+            return self.render_poses(d.xpos, d.xquat, height, width, cam_id)
 
     def render(self, s: State, height=480, width=640, camera="top") -> torch.Tensor:
         """(height, width, 3) uint8 frame of one env's (unbatched) State."""
