@@ -94,7 +94,8 @@ Phases, each printed on its own line:
     dropped (a planted fault), and the first PANDA64_STEPS in float64 hold
     the card to the CPU as phase 9 does; neither kernel launches;
 12. profiling.trace around one 4096-env control step: the trace holds both
-    kernels (10 launches each) and the five stage ranges; the summed
+    kernels (10 launches each) and the five stages' marks (10 each: the
+    substeps are replays of a CUDA graph, which run no host range); the summed
     device time of its kernels, copies and sets against the step's wall
     time (the device-busy share);
 13. the batch-first narrowphase on phase 3's state after 12 control
@@ -1751,7 +1752,8 @@ def run_panda(card):
 
 def run_trace(env, card):
     """One control step of the 4096-env main path under profiling.trace:
-    the trace holds both kernels and the five stage annotations; the summed
+    the trace holds both kernels and the five stages' marks, which the
+    substep graph's replays launch (they run no host range); the summed
     device time of its kernels, copies and sets against the step's wall
     time, traced and untraced."""
     import tempfile
@@ -1784,8 +1786,7 @@ def run_trace(env, card):
     names = {e.get("name", "") for e in events}
     kernels = {k: sum(k in e.get("name", "") for e in device)
                for k in ("hull_sweep_kernel", "newton_solve_kernel")}
-    stages = {k: sum(e.get("name") == k and e.get("cat") == "user_annotation"
-                     for e in events)
+    stages = {k: sum(f"gst_span_{k}" in e.get("name", "") for e in device)
               for k in ("smooth", "collide", "efc", "solve", "integrate")}
     busy_ms = sum(float(e.get("dur", 0)) for e in device) / 1e3
     top = {}
@@ -1794,7 +1795,7 @@ def run_trace(env, card):
     top = sorted(top.items(), key=lambda kv: -kv[1])[:5]
     log(f"trace: one {env.num_envs}-env control step, {size / 2**20:.1f} MiB, "
         f"{len(events)} events, {len(device)} device events; kernel launches in it "
-        f"{kernels}; stage ranges {stages}; summed device time {busy_ms:.2f} ms against "
+        f"{kernels}; stage marks {stages}; summed device time {busy_ms:.2f} ms against "
         f"the traced step's wall {traced_wall:.1f} ms ({busy_ms / traced_wall:.4f}) and "
         f"an untraced step's {plain_wall:.1f} ms ({busy_ms / plain_wall:.4f}); largest "
         f"device items (ms): " + ", ".join(f"{n} {t:.2f}" for n, t in top)

@@ -30,7 +30,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..models.scene import JNT_FREE, JNT_HINGE, Contact, Data, Model, State
+from ..models.scene import JNT_FREE, JNT_HINGE, Contact, Data, Model, State, static_tables
 from . import quat
 
 MINVAL = 1e-15
@@ -117,12 +117,10 @@ def _body_dof_masks(m: Model):
     return mask
 
 
-def point_jacobians(m: Model, d: Data, body_ids, points):
+def point_jacobians(d: Data, mk, points):
     """Translational and rotational Jacobians of world `points` (B, N, 3)
-    attached to `body_ids` (N,), from the com-frame cdof axes.  Returns
-    (Jt, Jr), each (B, N, 3, nv)."""
-    mk = torch.as_tensor(_body_dof_masks(m)[list(body_ids)], dtype=points.dtype,
-                         device=points.device)              # (N, nv)
+    attached to bodies whose ancestor-dof masks are `mk` (N, nv), from the
+    com-frame cdof axes.  Returns (Jt, Jr), each (B, N, 3, nv)."""
     ang = d.cdof[..., :3]                                   # (B, nv, 3)
     lin = d.cdof[..., 3:]
     offset = points - d.subtree_com[:, :1]                  # (B, N, 3)
@@ -131,6 +129,26 @@ def point_jacobians(m: Model, d: Data, body_ids, points):
     Jt = (lin[:, None] + cross) * mk[None, :, :, None]
     Jr = ang[:, None] * mk[None, :, :, None]
     return Jt.transpose(-1, -2), Jr.transpose(-1, -2)
+
+
+class _EqualityTables:
+    """The static tables of `equality_rows` on the model's device (per
+    Model and dtype): weld sites, their bodies and those bodies' dof
+    masks, the coupled joints' qpos and dof addresses.  Indexing with
+    tensors already on the device keeps host-to-device copies out of the
+    substep, which a CUDA graph could not capture."""
+
+    def __init__(self, m: Model, dtype):
+        dev = m.device
+        lt = lambda a: torch.tensor(list(a), dtype=torch.long, device=dev)
+        sb1 = [m.site_bodyid[i] for i in m.eq_site1]
+        sb2 = [m.site_bodyid[i] for i in m.eq_site2]
+        masks = _body_dof_masks(m)
+        self.s1, self.s2, self.sb1, self.sb2 = lt(m.eq_site1), lt(m.eq_site2), lt(sb1), lt(sb2)
+        self.mk1 = torch.as_tensor(masks[sb1], dtype=dtype, device=dev)      # (NEQ, nv)
+        self.mk2 = torch.as_tensor(masks[sb2], dtype=dtype, device=dev)
+        self.q1a, self.q2a = lt(m.eq_jnt_q1), lt(m.eq_jnt_q2)
+        self.v1a, self.v2a = lt(m.eq_jnt_v1), lt(m.eq_jnt_v2)
 
 
 def equality_rows(m: Model, d: Data, s: State):
@@ -147,18 +165,19 @@ def equality_rows(m: Model, d: Data, s: State):
     blocks = []
 
     neq = len(m.eq_site1)
+    njeq = len(m.eq_jnt_q1)
+    if neq or njeq:
+        tb = static_tables(m, f"equality_rows.{dtype}", lambda m: _EqualityTables(m, dtype))
     if neq:
-        s1, s2 = list(m.eq_site1), list(m.eq_site2)
-        sb1 = [m.site_bodyid[i] for i in s1]
-        sb2 = [m.site_bodyid[i] for i in s2]
-        p1 = d.site_xpos[:, s1]                             # (B, NEQ, 3)
-        p2 = d.site_xpos[:, s2]
+        sb1, sb2 = tb.sb1, tb.sb2
+        p1 = d.site_xpos[:, tb.s1]                          # (B, NEQ, 3)
+        p2 = d.site_xpos[:, tb.s2]
         res_t = p1 - p2
-        q1 = quat.from_mat(d.site_xmat[:, s1])
-        q2 = quat.from_mat(d.site_xmat[:, s2])
+        q1 = quat.from_mat(d.site_xmat[:, tb.s1])
+        q2 = quat.from_mat(d.site_xmat[:, tb.s2])
         res_r = quat.mul(quat.conj(q2), q1)[..., 1:]
-        Jt1, Jr1 = point_jacobians(m, d, sb1, p1)
-        Jt2, Jr2 = point_jacobians(m, d, sb2, p2)
+        Jt1, Jr1 = point_jacobians(d, tb.mk1, p1)
+        Jt2, Jr2 = point_jacobians(d, tb.mk2, p2)
         # M[:, k] = vec(conj(q2) (0, e_k) q1); d res_r / d omega1 = 0.5 M
         eye = torch.eye(3, dtype=dtype, device=dev)
         cols = []
@@ -182,10 +201,8 @@ def equality_rows(m: Model, d: Data, s: State):
         blocks.append((Jeq.reshape(B, n, nv), aref.reshape(B, n), (1.0 / R).reshape(B, n),
                        R.reshape(B, n), res.reshape(B, n)))
 
-    njeq = len(m.eq_jnt_q1)
     if njeq:
-        q1a, q2a = list(m.eq_jnt_q1), list(m.eq_jnt_q2)
-        v1a, v2a = list(m.eq_jnt_v1), list(m.eq_jnt_v2)
+        q1a, q2a, v1a, v2a = tb.q1a, tb.q2a, tb.v1a, tb.v2a
         c = m.eq_jnt_poly                                   # (NJEQ, 5)
         x = s.qpos[:, q2a] - m.qpos0[q2a]
         poly = c[:, 0] + x * (c[:, 1] + x * (c[:, 2] + x * (c[:, 3] + x * c[:, 4])))
@@ -193,7 +210,7 @@ def equality_rows(m: Model, d: Data, s: State):
         res = (s.qpos[:, q1a] - m.qpos0[q1a]) - poly        # (B, NJEQ)
         rows = torch.arange(njeq, device=dev)
         J = torch.zeros(B, njeq, nv, dtype=dtype, device=dev)
-        J[:, rows, v1a] = 1.0
+        J[:, rows, v1a] = torch.ones((), dtype=dtype, device=dev)
         J[:, rows, v2a] -= dpoly
         vel = s.qvel[:, v1a] - dpoly * s.qvel[:, v2a]
         imp = impedance(m.eq_jnt_solimp, res)

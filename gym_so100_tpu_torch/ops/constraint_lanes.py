@@ -22,7 +22,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..models.scene import JNT_HINGE, Contact, ContactLanes, Data, Model, State
+from ..models.scene import JNT_HINGE, Contact, ContactLanes, Data, Model, State, static_tables
 from .constraint import (
     CDIM,
     MINVAL,
@@ -64,6 +64,32 @@ def make_efc_lanes(m: Model, d: Data, s: State, con: Contact) -> EfcLanes:
     return make_efc_from_lanes(m, d, s, contact_to_lanes(m, con))
 
 
+class _RowTables:
+    """The static tables of the friction-loss and limit rows on the model's
+    device (per Model and dtype): the dofs and joints they index and their
+    one-hot Jacobians (nv, n, 1).  Indexing with tensors already on the
+    device keeps host-to-device copies out of the substep, which a CUDA
+    graph could not capture."""
+
+    def __init__(self, m: Model, dtype):
+        dev = m.device
+        lt = lambda a: torch.tensor(list(a), dtype=torch.long, device=dev)
+        lim = [j for j in range(len(m.jnt_type))
+               if m.jnt_limited[j] and m.jnt_type[j] == JNT_HINGE]
+        vadr = [m.jnt_dofadr[j] for j in lim]
+
+        def onehot(dofs):
+            out = np.zeros((m.nv, len(dofs), 1))
+            out[np.asarray(dofs, dtype=np.int64), np.arange(len(dofs)), 0] = 1.0
+            return torch.as_tensor(out, dtype=dtype, device=dev)
+
+        self.fl_dofs = lt(m.fl_dofs)
+        self.fl_onehot = onehot(list(m.fl_dofs))
+        self.lim_jnts, self.lim_vadr = lt(lim), lt(vadr)
+        self.lim_qadr = lt(m.jnt_qposadr[j] for j in lim)
+        self.lim_onehot = onehot(vadr)
+
+
 def make_efc_from_lanes(m: Model, d: Data, s: State, cl: ContactLanes) -> EfcLanes:
     """Batched constraint assembly: d/s carry a leading env axis B, the
     contacts arrive as ContactLanes ((K, B) fields), the rows come out
@@ -85,18 +111,17 @@ def make_efc_from_lanes(m: Model, d: Data, s: State, cl: ContactLanes) -> EfcLan
         poss.append(pos.T)
         neqr += aref.shape[1]
 
+    tb = static_tables(m, f"efc_lanes.{dtype}", lambda m: _RowTables(m, dtype))
+
     # ---- dof friction loss rows (static one-hot J, per-dof constants) ----
-    fl_dofs = m.fl_dofs
-    nf = len(fl_dofs)
+    nf = len(m.fl_dofs)
     if nf:
-        ids = list(fl_dofs)
-        onehot = np.zeros((nv, nf, 1))
-        onehot[np.asarray(fl_dofs), np.arange(nf), 0] = 1.0
+        ids = tb.fl_dofs
         imp = impedance(m.dof_solimp[ids], torch.zeros(nf, dtype=dtype, device=dev))
         Kk, Bk = kb(m.dof_solref[ids], m.dof_solimp[ids][:, 1])
         aref = -Bk[None] * s.qvel[:, ids]                  # (B, nf)
         R = torch.clamp((1 - imp) / imp * m.dof_invweight0[ids], min=MINVAL)
-        Jv.append(torch.as_tensor(onehot, dtype=dtype, device=dev).expand(nv, nf, B))
+        Jv.append(tb.fl_onehot.expand(nv, nf, B))
         arefs.append(aref.T)
         Ds.append((1.0 / R)[:, None].expand(nf, B))
         Rs.append(R[:, None].expand(nf, B))
@@ -106,12 +131,9 @@ def make_efc_from_lanes(m: Model, d: Data, s: State, cl: ContactLanes) -> EfcLan
         floss = torch.zeros(0, B, dtype=dtype, device=dev)
 
     # ---- joint limit rows ----
-    lim_jnts = [j for j in range(len(m.jnt_type))
-                if m.jnt_limited[j] and m.jnt_type[j] == JNT_HINGE]
-    nl = len(lim_jnts)
+    nl = tb.lim_jnts.shape[0]
     if nl:
-        qadr = [m.jnt_qposadr[j] for j in lim_jnts]
-        vadr = [m.jnt_dofadr[j] for j in lim_jnts]
+        lim_jnts, qadr, vadr = tb.lim_jnts, tb.lim_qadr, tb.lim_vadr
         q = s.qpos[:, qadr].T                              # (nl, B)
         lo = m.jnt_range[lim_jnts, 0][:, None]
         hi = m.jnt_range[lim_jnts, 1][:, None]
@@ -120,9 +142,7 @@ def make_efc_from_lanes(m: Model, d: Data, s: State, cl: ContactLanes) -> EfcLan
         use_lo = dist_lo < dist_hi
         dist = torch.where(use_lo, dist_lo, dist_hi)
         sign = torch.where(use_lo, 1.0, -1.0).to(dtype)
-        hit = np.zeros((nv, nl, 1))
-        hit[np.asarray(vadr), np.arange(nl), 0] = 1.0
-        Jv.append(sign[None] * torch.as_tensor(hit, dtype=dtype, device=dev))
+        Jv.append(sign[None] * tb.lim_onehot)
         active = dist < 0
         imp = impedance(m.jnt_solimp[lim_jnts][:, None, :], dist)
         Kk, Bk = kb(m.jnt_solref[lim_jnts], m.jnt_solimp[lim_jnts][:, 1])

@@ -24,7 +24,7 @@ def mul(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 
 def conj(q: torch.Tensor) -> torch.Tensor:
     """Conjugate (w, -x, -y, -z) of (..., 4) quaternions."""
-    return q * torch.tensor([1.0, -1, -1, -1], dtype=q.dtype, device=q.device)
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -256,7 +256,7 @@ def pack_fused_inputs(m: Model, qM, a0, efc: EfcLanes, warmstart=None):
     scale = 1.0 / (max(m.stat_meaninertia, MINVAL_) * max(1, nv))
     aux = torch.cat([efc.floss, efc.R[neq:neq + nf], efc.con_mu, efc.con_Dn,
                      torch.full((1, B), scale, dtype=a0.dtype, device=a0.device)])
-    tri = torch.tril_indices(nv, nv)
+    tri = torch.tril_indices(nv, nv, device=qM.device)
     x0 = a0.T
     return dict(
         J=cmajor(efc.J).reshape(nv * efc.J.shape[1], B).contiguous(),
@@ -325,17 +325,22 @@ def solve_lanes(m: Model, qM, a0, efc: EfcLanes, warmstart=None):
     (B, nv) or None.  Returns (qacc (B, nv), qfrc_constraint (B, nv),
     niter (B,)).  CPU tensors run the plain version; CUDA tensors launch
     the kernel, which takes float32 only.  While a profiler records, it
-    counts the solves, their Newton iterations and the solves that used
-    the whole iteration budget (`profiling.count`)."""
+    counts the solves (`count_solves`)."""
     if a0.device.type == "cpu":
         out = solve_plain(m, qM, a0, efc, warmstart)
     elif a0.dtype != torch.float32:
         raise TypeError(f"the CUDA solver kernel takes float32, got {a0.dtype}")
     else:
         out = solve_fused(m, qM, a0, efc, warmstart)
+    count_solves(m, out[2], a0.dtype)
+    return out
+
+
+def count_solves(m: Model, niter, dtype):
+    """While a profiler records, count the solves of one call in `dtype`,
+    their Newton iterations and the solves that used the whole iteration
+    budget, from its `niter` (B,)."""
     if profiling.recording():
-        niter = out[2]
         profiling.count("newton.solves", niter.numel())
         profiling.count("newton.iterations", niter)
-        profiling.count("newton.capped", niter >= budgets(m, a0.dtype)[0])
-    return out
+        profiling.count("newton.capped", niter >= budgets(m, dtype)[0])

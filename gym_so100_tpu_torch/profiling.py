@@ -13,22 +13,29 @@ attributes host and device time to them, and `trace()` captures one:
     prof.key_averages()          # per-op and per-range CPU and CUDA times
 
 Everything here records only while a torch profiler records (`trace()`,
-or any `torch.profiler.profile` the caller starts); otherwise a span is a
-null context and a count does nothing.  While one records:
+or any `torch.profiler.profile` the caller starts), with one exception:
+the marks of a CUDA graph capture.  Otherwise a span is a null context and
+a count does nothing.  While one records:
 
 * a span opens a host range (`record_function`) and, on CUDA, launches
   the empty kernel `gst_span_<name>` (`csrc/span_mark.cu`) when it opens
   and the mark of the enclosing span (`gst_span_none` at the top) when it
   closes.  The step runs on one stream, so every device op between two
-  marks belongs to the span the earlier one names; a CUDA graph captured
-  while a profiler records holds the marks and replays them with the
-  work around them, where host ranges do not run.  A name outside
+  marks belongs to the span the earlier one names.  A name outside
   `SPANS` opens its range and launches no mark;
 * `count(name, value)` adds to a counter without a sync (a tensor is
   summed elementwise on its device, reduced when read), and `counters()`
   reads them all.  `solver_lanes.solve_lanes` counts `newton.solves`,
   `newton.iterations` and `newton.capped` (solves that reached the
-  iteration budget).
+  iteration budget); `forward.n_steps_batched` counts `substep.graphed`
+  and `substep.eager`.
+
+While the current stream captures a CUDA graph (`capturing()`; the
+substep graphs of `forward.n_steps_batched`), a span launches its marks
+whether or not a profiler records, so the graph holds them and every
+replay runs them with the work around them; it opens its host range only
+while a profiler records.  Counts are not made during a capture, whose
+work does not run: whoever replays the graph counts after each replay.
 
 `trace()` writes `trace.json` (Chrome trace format: open it in Perfetto or
 chrome://tracing; the marks are the `gst_span_*` kernels on the device
@@ -62,8 +69,14 @@ _device_counts = {}             # (name, shape, device) -> accumulated tensor
 
 
 def recording() -> bool:
-    """Whether a torch profiler records on this thread."""
-    return _profiler_enabled()
+    """Whether a torch profiler records on this thread and no CUDA graph
+    capture is under way: whether counts are made."""
+    return _profiler_enabled() and not capturing()
+
+
+def capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph."""
+    return torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing()
 
 
 @contextlib.contextmanager
@@ -107,12 +120,13 @@ def trace(logdir: str, device="cuda"):
 
 
 class _Span:
-    """A host range and, for a name in SPANS, the marks around it."""
+    """A host range (where `ranged`) and, for a name in SPANS, the marks
+    around it."""
 
     __slots__ = ("_range", "_index")
 
-    def __init__(self, name):
-        self._range = record_function(name)
+    def __init__(self, name, ranged=True):
+        self._range = record_function(name) if ranged else _NULL
         self._index = _SPAN_INDEX.get(name)
 
     def __enter__(self):
@@ -149,15 +163,19 @@ def _launch_mark(index):
 def annotate(name: str):
     """A named span: while a profiler records, a host range
     (`torch.profiler.record_function`) and, for a name in SPANS, its marks
-    on the device stream; otherwise a null context."""
-    return _Span(name) if _profiler_enabled() else _NULL
+    on the device stream; during a CUDA graph capture with no profiler,
+    the marks alone; otherwise a null context."""
+    if _profiler_enabled():
+        return _Span(name)
+    return _Span(name, ranged=False) if capturing() else _NULL
 
 
 def count(name: str, value):
-    """Add `value` to counter `name` while a profiler records: a number on
-    the host, a tensor elementwise into an accumulator on its device (no
-    sync; `counters()` reduces).  Does nothing otherwise."""
-    if not _profiler_enabled():
+    """Add `value` to counter `name` while a profiler records and no CUDA
+    graph capture is under way: a number on the host, a tensor elementwise
+    into an accumulator on its device (no sync; `counters()` reduces).
+    Does nothing otherwise."""
+    if not recording():
         return
     if not isinstance(value, torch.Tensor):
         _host_counts[name] = _host_counts.get(name, 0.0) + float(value)
