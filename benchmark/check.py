@@ -23,11 +23,13 @@ configuration file:
   state_gap_p90  90th percentile over the checked envs of the largest
                  |program - reference| / (1 + |reference|) over qpos and
                  qvel after the step: a fault that touches most envs.
-  envs_off       the checked envs whose gap exceeds the configuration's
-                 `check.off_gap`: a fault confined to a few envs, such as
-                 the hull contacts of the envs whose arm touches something.
-                 Kernel and plain Newton solves part at rounding-level
-                 knife edges in a few envs, so a count and not the maximum.
+  envs_off_pct   the share (%) of the checked envs whose gap exceeds the
+                 configuration's `check.off_gap`: a fault confined to a few
+                 envs, such as the hull contacts of the envs whose arm
+                 touches something.  Kernel and plain Newton solves part at
+                 rounding-level knife edges in a few envs, so a share and
+                 not the maximum; a share, so that one limit holds at any
+                 width.
   answer_gap     the largest |program - reference| over the observations
                  (the state vector, or the arm qpos beside the frame) of
                  every env, and the terminal observations and rewards of
@@ -211,7 +213,7 @@ def frame_shares(a, b):
 
 class Tally:
     """The numbers over the checked steps of one run; `off_gap` is the
-    state gap above which an env counts in `envs_off`."""
+    state gap above which an env counts in `envs_off_pct`."""
 
     def __init__(self, pixels: bool, off_gap: float):
         self.pixels = pixels
@@ -272,7 +274,7 @@ class Tally:
         gaps = torch.cat(self.gaps) if self.gaps else torch.full((1,), torch.inf)
         out = {
             "state_gap_p90": float(torch.quantile(gaps.double().clamp(max=1e30), 0.9)),
-            "envs_off": int((gaps > self.off_gap).sum()),
+            "envs_off_pct": 100.0 * int((gaps > self.off_gap).sum()) / gaps.numel(),
             "answer_gap": self.answer,
             "terminal_gap": self.terminal,
             "reset_errors": self.reset_errors,

@@ -1,5 +1,7 @@
-"""The faults that the check has to catch, each planted in the timed path
-as a wrapper of the program's `BatchedEnv.step` (`fault(step) -> step`).
+"""The faults that the check of the program `batched_env` has to catch,
+each planted in the timed path as a wrapper of the program's
+`BatchedEnv.step` (`fault(step) -> step`), on a freshly built env before
+its first step (`benchmark/programs/batched_env.py` `faults`).
 
     unchanged   the step returns its state unchanged
     half        half of the batch left unstepped (envs B/2.. keep their state)
@@ -10,13 +12,16 @@ as a wrapper of the program's `BatchedEnv.step` (`fault(step) -> step`).
                 they get their terminal frame
     hull        every hull pair's depth zeroed in the sweep, so no hull
                 contact is made (the arm's meshes against the cube, the
-                table and each other)
+                table and each other); the stand-in is in place while each
+                step runs, the first included, so on the card the substep
+                graph captured in that step holds it
     control     the reference computed in bfloat16, the nearest precision
                 below the configuration's float32, in the program's place
 
 `for_config(config, device)` gives those that the configuration can have.
 `benchmark/calibrate.py` reads them on the card at the cell's own size,
-`benchmark/tests/test_bench_faults.py` on the CPU at a few envs.
+each on an env of its own, `benchmark/tests/test_bench_faults.py` on the
+CPU at a few envs.
 """
 
 from __future__ import annotations

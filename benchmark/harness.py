@@ -4,12 +4,15 @@ reference's check and the result line.
     python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 The cell (`BENCHMARK.json` `workloads`) names a configuration
-(`benchmark/configs/<config>.json`: scene, task, precision, contact slots,
-observation mode) and a traffic mix (`benchmark/traffic/<traffic>.json`,
-read by `traffic.Traffic`).  The program under test is
-`gym_so100_tpu_torch`; the window drives its public batched env step,
-`BatchedEnv.step`, in a closed loop.  Metrics are found by name: each is a
-reader `benchmark/metrics/<name>.py` with `read(run) -> float | None`.
+(`benchmark/configs/<config>.json`) and a traffic mix
+(`benchmark/traffic/<traffic>.json`).  The configuration names the program
+under test, a part of `gym_so100_tpu_torch` and how to drive it: a module
+`benchmark/programs/<program>.py` (`batched_env` where it names none; the
+contract is `benchmark/programs/__init__.py`'s), which makes the run's
+inputs from the traffic file, builds the program, drives the window and
+checks it against the plain reference.  Metrics are found by name too:
+each is a reader `benchmark/metrics/<name>.py` with
+`read(run) -> float | None`.
 """
 
 from __future__ import annotations
@@ -17,18 +20,18 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
-import os
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-from . import check, imports
+from . import imports
 from . import trace as tracing
 from . import traffic as traffic_mod
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+PROGRAMS = HERE / "programs"
 
 
 class Run:
@@ -46,7 +49,7 @@ class Run:
         self.failed = 0
         self.trace = None
         self.shapes = None        # the cell's kernel shapes, from the reference model
-        self.records = []
+        self.records = []         # what the program's check reads
         self.start = None
         self.marks = {}           # set-up phases, seconds since process start
 
@@ -79,6 +82,17 @@ def reader(name):
     return mod.read
 
 
+def program(config):
+    """The program module that the configuration names,
+    `benchmark/programs/<program>.py` (`batched_env` where it names none)."""
+    name = config.get("program", "batched_env")
+    spec = importlib.util.spec_from_file_location("benchmark.programs." + name,
+                                                  PROGRAMS / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def card_state():
     """nvidia-smi's line for the card: name, power limit, SM clock and its
     maximum, power draw, temperature (None where it cannot be read)."""
@@ -90,138 +104,6 @@ def card_state():
         return res.stdout.strip().splitlines()[0] if res.returncode == 0 else None
     except (OSError, subprocess.SubprocessError, IndexError):
         return None
-
-
-def build_program(config, num_envs, seed, device):
-    """The program's batched env for the configuration."""
-    import torch
-
-    from gym_so100_tpu_torch.models.builder import build_model
-    from gym_so100_tpu_torch.parallel.batch import BatchedEnv
-
-    if config["dtype"] != "float32":
-        raise ValueError("the configurations run in float32")
-    os.environ["GST_OBS_TRIS"] = str(config["tris_per_mesh"])
-    m, aux = build_model(str(ROOT / config["scene_xml"]), max_contacts=config["max_contacts"],
-                         device=device, dtype=torch.float32)
-    return BatchedEnv(m, task=config["task"], num_envs=num_envs,
-                      hull_contacts=config["hull_contacts"], obs_mode=config["obs_mode"],
-                      device=device, seed=seed, max_contacts=config["max_contacts"],
-                      obs_height=config["obs_height"], obs_width=config["obs_width"],
-                      render_aux=aux)
-
-
-def _nonfinite(es, obs, reward):
-    """(B,) envs whose returned state, obs or reward is not finite."""
-    import torch
-
-    bad = ~torch.isfinite(reward)
-    for x in (es.physics.qpos, es.physics.qvel):
-        bad |= ~torch.isfinite(x).all(1)
-    o = obs["agent_pos"] if isinstance(obs, dict) else obs
-    return bad | ~torch.isfinite(o).all(1)
-
-
-def drive(run, env, traffic, device, seconds=None, max_steps=None, trace=False,
-          t_process=None, sync=None):
-    """Reset, warm up, then the window: control steps in a closed loop until
-    `seconds` have passed (the step under way then finishes and counts) and
-    the checked steps are done, or until `max_steps` are done.  Keeps the
-    checked steps' records in `run.records`.  With `trace`, once the window
-    has closed, one more control step runs under the profiler, outside the
-    window, and its Trace goes to `run.trace`."""
-    import torch
-
-    sync = sync or (lambda: torch.cuda.synchronize(device))
-    mark = (lambda k: run.marks.__setitem__(k, time.perf_counter() - t_process)) \
-        if t_process is not None else (lambda k: None)
-    poses, ages = traffic.initial()
-    es = env.reset(box_pose=poses)
-    es = es.replace(t=ages)
-    run.start = (check.state_only(es), poses, ages)
-    sync()
-    mark("reset")
-    for _ in range(int(traffic.spec["warmup_steps"])):
-        es = env.step(es, *traffic.step_inputs())[0]
-    sync()
-    mark("warm-up")
-    wanted = set(traffic.check_steps())
-    min_steps = int(traffic.spec["check"]["last"]) + 1
-    bad = torch.zeros((), dtype=torch.int64, device=device)
-    t0 = time.perf_counter()
-    if t_process is not None:
-        run.setup_s = t0 - t_process
-    i = 0
-    while True:
-        actions, spawn = traffic.step_inputs()
-        rec = None
-        if i in wanted:
-            rec = check.Record(i, check.state_only(es), actions.clone(), spawn.clone())
-        ts, cs = time.perf_counter(), time.thread_time()
-        out = env.step(es, actions, reset_box_pose=spawn)
-        es2, obs, reward, term, trunc, info = out
-        bad += _nonfinite(es2, obs, reward).sum()
-        if rec is not None:
-            rec.out = check.outputs_of(es2, obs, reward, term, trunc, info["final_obs"])
-            run.records.append(rec)
-        es = es2
-        i += 1
-        run.step_s.append(time.perf_counter() - ts)
-        run.cpu_s.append(time.thread_time() - cs)
-        if max_steps is not None and i >= max_steps:
-            break
-        if seconds is not None and time.perf_counter() - t0 >= seconds and i >= min_steps:
-            break
-    sync()
-    run.window_s = time.perf_counter() - t0
-    run.steps = i
-    run.env_steps = i * traffic.envs
-    run.failed = int(bad)
-    if trace:
-        actions, spawn = traffic.step_inputs()
-        out, prof = tracing.capture(lambda: env.step(es, actions, reset_box_pose=spawn))
-        es = out[0]
-        run.trace = tracing.from_kineto(prof.profiler.kineto_results.events())
-    return es
-
-
-def kernel_shapes(ref, envs):
-    """The cell's shapes that the roofline readers take, worked out from
-    the reference's own model (its constraint rows at one resting env)."""
-    import torch
-
-    from .reference.ops import constraint_lanes, smooth_lanes
-    from .reference.ops.collision import hull_lanes, narrowphase
-    from .reference.models.scene import Data
-
-    m = ref.env.m
-    tb = hull_lanes.hull_tables(m)
-    pose = torch.tensor([[-0.2, 0.45, 0.05, 1.0, 0.0, 0.0, 0.0]], dtype=m.dtype, device=m.device)
-    es = ref.env.reset(pose)
-    s = es.physics
-    sl = smooth_lanes.forward_smooth_lanes(m, s)
-    d = Data(geom_xpos=sl["geom_xpos"], geom_xmat=sl["geom_xmat"],
-             site_xpos=sl["site_xpos"], site_xmat=sl["site_xmat"],
-             subtree_com=sl["subtree_com0"][:, None], cdof=sl["cdof"])
-    efc = constraint_lanes.make_efc_from_lanes(m, d, s, narrowphase.collide_batched_lanes(m, d))
-    return dict(
-        B=envs, nv=m.nv, K=m.max_contacts, neq=efc.neq, nf=efc.nf, nl=efc.nl,
-        hull=dict(G=tb.G, ND=int(tb.D.shape[0]), P=tb.P, Vmax=tb.verts.shape[1] // 3,
-                  counts=[int(c) for c in tb.counts.tolist()]),
-    )
-
-
-def verify(run, config, device, ref=None):
-    """The reference's check of the run's records; returns (correct,
-    [(name, value, limit)], the Reference, the Tally)."""
-    ref = ref or check.Reference(config, device)
-    tally = check.Tally(ref.pixels, config["check"]["off_gap"])
-    before, poses, ages = run.start
-    tally.start(ref, before, poses, ages)
-    for rec in run.records:
-        tally.add(ref, rec, rec.out, ref.step(rec, observe=False))
-    correct, rows = check.judge(tally.numbers(), config["limits"], tally.steps)
-    return correct, rows, ref, tally
 
 
 def parse(argv):
@@ -248,43 +130,38 @@ def main(argv, t_process):
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    prog = program(config)
     tspec = traffic_mod.load(cell["traffic"])
-    traffic = traffic_mod.Traffic(tspec, args.seed, device)
+    traffic = prog.traffic(tspec, args.seed, device)
     run = Run(cell, config, tspec)
     torch.cuda.synchronize(device)
     run.marks["imports and device"] = time.perf_counter() - t_process
-    env = build_program(config, traffic.envs, args.seed, device)
+    subject = prog.build(config, tspec, args.seed, device)
     torch.cuda.synchronize(device)
     run.marks["program built"] = time.perf_counter() - t_process
     kind = "per_layer" if args.trace else "end_to_end"
     wanted = metrics_for(bench, cell, kind)
     # a traced run, or one whose end-to-end metrics come from the device's trace
     traced = bool(args.trace) or any(m["source"] == "device_trace" for m in wanted)
-    drive(run, env, traffic, device, seconds=args.seconds, trace=traced, t_process=t_process)
+    prog.drive(run, subject, traffic, device, seconds=args.seconds, trace=traced,
+               t_process=t_process)
     peak = torch.cuda.max_memory_allocated(device)
     card = card_state()
-    print(f"window: {run.steps} control steps of {traffic.envs} envs in {run.window_s:.4f} s; "
+    print(f"window: {run.steps} control steps, {run.env_steps} env-steps in {run.window_s:.4f} s; "
           f"set-up {run.setup_s:.4f} s (" + ", ".join(f"{k} at {v:.2f}" for k, v in
                                                run.marks.items()) + "); host s per step "
           + " ".join(f"{x:.4f}" for x in run.step_s) + "; main thread CPU s per step "
           + " ".join(f"{x:.4f}" for x in run.cpu_s) + f"; card: {card}", file=sys.stderr)
-    del env
+    del subject
     torch.cuda.empty_cache()
 
-    correct, rows, ref, _ = verify(run, config, device)
+    correct, rows, ref, _ = prog.verify(run, config, device)
     metrics = {}
     if traced:
-        run.shapes = kernel_shapes(ref, traffic.envs)
-        kernels = [e.name for e in run.trace.device_ops() if e.kind == "kernel"]
+        run.shapes = prog.kernel_shapes(ref, tspec)
         busy = tracing.union_us((e.start, e.end) for e in run.trace.device_ops())
         print(f"trace: one control step after the window, {run.trace.wall_us / 1e3:.3f} ms, "
-              f"device busy {busy / 1e3:.3f} ms; host ms by range "
-              + json.dumps({r: tracing.range_ms(run.trace, r) for r in tracing.PHYSICS_RANGES})
-              + "; events by kind "
-              + json.dumps(run.trace.kinds) + "; hull_sweep launches "
-              f"{sum('hull_sweep' in n for n in kernels)}, newton_solve launches "
-              f"{sum('newton_solve' in n for n in kernels)}, physics ranges "
-              + json.dumps({r: len(run.trace.host_ranges(r)) for r in tracing.PHYSICS_RANGES})
+              f"device busy {busy / 1e3:.3f} ms; events by kind " + json.dumps(run.trace.kinds)
               + "; shapes " + json.dumps(run.shapes), file=sys.stderr)
     for m in wanted:
         value = reader(m["name"])(run)

@@ -2,7 +2,7 @@
 the five physics stages: the union of the device ops labelled by no
 physics mark (`benchmark/spans.py`): the kinematics refresh, the reward,
 the observations, the done test's sync, the autoreset and, with pixel
-observations, the renders.  The device side of `env_rest_ms`."""
+observations, the renders."""
 
 from benchmark import spans
 

@@ -20,6 +20,11 @@ KEYS = {
 }
 
 
+# what a program module gives (benchmark/programs/__init__.py)
+CONTRACT = ("traffic", "build", "drive", "verify", "kernel_shapes", "limit_names", "faults",
+            "readings")
+
+
 def _line(s):
     return isinstance(s, str) and 1 <= len(s) <= 200 and "\n" not in s and "\t" not in s
 
@@ -98,13 +103,11 @@ def test_each_cell_reports_what_its_per_layer_metrics_move(cell):
 def test_cell_files_found_by_name(cell):
     c, config = harness.find_cell(BENCH, cell)
     assert config["name"] == c["config"]
-    spec = traffic.load(c["traffic"])
-    chk = spec["check"]
-    assert spec["envs"] >= 1 and 0 <= chk["first"] and chk["steps"] <= chk["last"] - chk["first"] + 1
-    names = {"state_gap_p90", "envs_off", "answer_gap", "terminal_gap", "reset_errors"}
-    if config["obs_mode"] == "pixels_agent_pos":
-        names |= {"frame_gap", "terminal_frame_gap"}
-    assert set(config["limits"]) == names and config["check"]["off_gap"] > 0
+    assert isinstance(traffic.load(c["traffic"]), dict)
+    prog = harness.program(config)
+    for name in CONTRACT:
+        assert callable(getattr(prog, name)), name
+    assert set(config["limits"]) == prog.limit_names(config)
     for kind in ("end_to_end", "per_layer"):
         for m in harness.metrics_for(BENCH, c, kind):
             assert callable(harness.reader(m["name"]))

@@ -42,6 +42,7 @@ def test_a_planted_import_is_caught_in_a_real_process():
 def test_the_run_path_loads_no_jax():
     loaded = _loaded_after(
         "from benchmark import harness, check, calibrate, trace, traffic, roofline; "
+        "import benchmark.programs.batched_env; "
         "import gym_so100_tpu_torch.parallel.batch, gym_so100_tpu_torch.render.rasterizer, "
         "gym_so100_tpu_torch.models.builder")
     assert imports.PROGRAM in loaded

@@ -10,7 +10,9 @@ from benchmark.reference.batch import RefEnv
 from benchmark.reference.models.builder import build_model
 
 BENCH = harness.load_benchmark()
-CELLS = {c: harness.find_cell(BENCH, c) for c in [w["name"] for w in BENCH["workloads"]]}
+# one cell of each configuration: the run below sets its own width
+CELLS = {c: harness.find_cell(BENCH, c)
+         for c in {w["config"]: w["name"] for w in reversed(BENCH["workloads"])}.values()}
 
 
 @pytest.mark.parametrize("cell", sorted(CELLS))
@@ -19,7 +21,7 @@ def test_reference_equals_port_plain_path(cell):
     B = 3
     spec = dict(traffic.load(c["traffic"]), envs=B)
     gen = traffic.Traffic(spec, 2 ** 31 + 5, "cpu")
-    prog = harness.build_program(config, B, 0, "cpu")
+    prog = harness.program(config).build(config, spec, 0, "cpu")
     m, aux = build_model(str(harness.ROOT / config["scene_xml"]),
                          max_contacts=config["max_contacts"], device="cpu")
     ref = RefEnv(m, aux, config["task"], config["episode_steps"], obs_mode=config["obs_mode"],
